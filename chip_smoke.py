@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GNN inference-serving path on one card.
+"""Drive the PyTorch/CUDA port on one card: GNN inference serving (K1-K3)
+and LM serving, prefill then greedy decode (K4, K5).
 
     python3 chip_smoke.py
 
 Imports nothing of JAX and nothing of the reference package.  Phases; any
 failure raises and the script exits non-zero:
 
-  1. build   — compile every CUDA kernel of the path from src/repro_torch/
+  1. build   — compile every CUDA kernel of both paths from src/repro_torch/
                csrc with nvcc for sm_90a (one process per source, at once);
   2. edges   — each kernel against its plain PyTorch version on the card
-               at the edge cases (B=1, empty tiers, duplicate-heavy
-               batches, odd widths, bf16, out-of-range segment ids);
+               at the edge cases (K1-K3: B=1, empty tiers, duplicate-heavy
+               batches, odd widths, bf16, out-of-range segment ids; K4:
+               S in {1, 24, 129}, hd in {64, 80, 128}, GQA groups
+               {1, 3, 8}, causal or not, f32 and bf16; K5: T in
+               {1, 17, 64}, logw in {-1e-4, -0.5, -20}, nonzero state);
   3. serve   — GNNInferenceServer on the IG-shaped graph (269,000
                vertices, 1024-dim f32 rows) with GraphSAGE at hidden 256,
                fanouts (10, 5), 64-seed requests, 8 per micro-batch: the
@@ -18,22 +22,40 @@ failure raises and the script exits non-zero:
                flushed under the tracer (its serve.* spans split the wall
                time per micro-batch), and every kernel must have
                launched;
-  4. kernels — each kernel against its plain version on the card on the
-               inputs the serving run gave it (K1, K2 bit-exact; K3 within
-               1e-5 of the largest sum), timed with the L2 cache cold
-               (device time from the profiler, and CUDA events) beside its
-               plain version, its bound and a PyTorch library call;
+  4. kernels — K1-K3 against their plain versions on the card on the
+               inputs the serving run gave them (K1, K2 bit-exact; K3
+               within 1e-5 of the largest sum), timed with the L2 cache
+               cold (device time from the profiler, and CUDA events) beside
+               the plain version, the bound and a PyTorch library call;
   5. cpu     — a fresh server on the CPU (plain versions, same
                parameters) serves the same requests: same answered/shed
-               split, logits within 1e-4.
+               split, logits within 1e-4;
+  6. llm     — llama3.2-3b, then rwkv6-7b, at full published width in
+               bf16 with random weights from a seeded CUDA generator (each
+               freed before the next): batch 4, a 1024-token prompt, one
+               make_prefill_step then 32 make_decode_step calls with greedy
+               tokens.  The K4/K5 counters are zeroed just before and read
+               just after: K4 must launch once per llama layer (28), K5
+               once per rwkv layer (32).  Prefill ms, decode ms per token,
+               tok/s, then one profiled prefill and 4 profiled decode
+               steps for the device's busy share and its top operations;
+  7. kernels — K4 and K5 against their plain versions on the inputs the
+               llm run gave them (layer 0's q/k/v; layer 0's r/k/v/logw),
+               timed as in phase 4, with SDPA as K4's library yardstick;
+  8. cpu     — prefill and 8 decode steps at .reduced() width on the card
+               and on the CPU (plain versions), both families, float32
+               (logits and caches within 1e-4) and bfloat16 (within 5e-2 of
+               the largest magnitude).
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-one ``{"server": ...}`` line, and as the last line
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout of the repository, it prints no result and exits non-zero.
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+(K1-K5), one ``{"server": ...}`` line, one ``{"llm": ...}`` line, and as
+the last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
+or outside a checkout of the repository, it prints no result and exits
+non-zero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -46,11 +68,15 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 PCIE_BYTES_S = 64e9       # PCIe Gen5 x16, one direction (PCI-SIG)
+BF16_OPS_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
+F32_OPS_S = 67e12         # H100 SXM float32 outside the tensor cores
 CFG = dict(model="sage", hidden=256, fanouts=(10, 5), request_batch_size=64,
            max_batch_requests=8, mode="helios", device_cache_frac=0.05,
            host_cache_frac=0.10, chaos=None, seed=0)
 REQUESTS, RATE = 64, 20_000     # 64-seed requests; open-loop virtual req/s
 DATA = os.path.join(ROOT, "build", "smoke_data")    # IG-shaped store
+LLM_ARCHS = ("llama3.2-3b", "rwkv6-7b")
+LLM_BATCH, LLM_PROMPT, LLM_DECODE, LLM_SEED = 4, 1024, 32, 0
 
 
 def log(msg):
@@ -163,6 +189,256 @@ def phase_edges(torch, dev, ops, refs):
                 raise AssertionError(f"K1 output {k} differs at B={B}")
 
 
+def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
+    """K4 and K5 against their plain versions at the edge cases: K4 within
+    2e-5 (float32) or 2e-2 (bf16, about two steps at the outputs' size);
+    K5, y and final state, within 1e-4 of the largest magnitude."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for S in (1, 24, 129):
+            for hd in (64, 80, 128):
+                for G in (1, 3, 8):
+                    K = 2
+                    q, k, v = (torch.randn(2, S, n, hd, generator=gen,
+                                           device=dev).to(dtype)
+                               for n in (K * G, K, K))
+                    for causal in (True, False):
+                        got = fa_ops.flash_attention(q, k, v, causal)
+                        torch.cuda.synchronize()
+                        err = float((got.float() - fa_ref.attention_ref(
+                            q, k, v, causal).float()).abs().max())
+                        if not err <= tol:
+                            raise AssertionError(
+                                f"K4 differs by {err} at S={S} hd={hd} "
+                                f"G={G} causal={causal} {dtype}")
+    for T in (1, 17, 64):
+        for lw in (-1e-4, -0.5, -20.0):
+            for N in (8, 64):
+                B, H = 2, 3
+                r, k, v = (torch.randn(B, T, H, N, generator=gen, device=dev)
+                           for _ in range(3))
+                logw = torch.full((B, T, H, N), lw, device=dev)
+                u = torch.randn(H, N, generator=gen, device=dev) * 0.3
+                s0 = torch.randn(B, H, N, N, generator=gen, device=dev)
+                got = wkv_ops.wkv(r, k, v, logw, u, s0)
+                torch.cuda.synchronize()
+                for a, b in zip(got, wkv_ref.wkv_ref(r, k, v, logw, u, s0)):
+                    err = float((a - b).abs().max())
+                    if not err <= 1e-4 * max(float(b.abs().max()), 1.0):
+                        raise AssertionError(f"K5 differs by {err} at T={T} "
+                                             f"logw={lw} N={N}")
+
+
+def top_ops(prof, n=6, per=1):
+    return {e.key[:60]: e.self_device_time_total / 1e3 / per
+            for e in sorted(prof.key_averages(),
+                            key=lambda e: -e.self_device_time_total)[:n]}
+
+
+def run_llm(torch, dev, cfg, counters):
+    """Prefill then greedy decode of one model (section 6 of the
+    docstring).  Returns (report, first K4/K5 call's inputs)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import attention, lm, rwkv6, steps
+
+    name = cfg.name
+    B, P, N = LLM_BATCH, LLM_PROMPT, LLM_DECODE
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(LLM_SEED)
+    params = lm.init_params(gen, cfg, device=dev)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    prefill = steps.make_prefill_step(cfg, extra_len=N + 4)
+    decode = steps.make_decode_step(cfg)
+    # warm-up outside the counted run: kernels loaded, cuBLAS handles made
+    _, c = prefill(params, {"tokens": prompt[:, :64]})
+    decode(params, c, prompt[:, :1], 64)
+    del c
+    torch.cuda.synchronize()
+
+    seen = {}
+
+    def recorder(key, fn):
+        def call(*a, **kw):
+            seen.setdefault(key, (a, kw))
+            return fn(*a, **kw)
+        return call
+    fa, wk = attention.flash_attention, rwkv6.wkv
+    attention.flash_attention = recorder("K4", fa)
+    rwkv6.wkv = recorder("K5", wk)
+    try:
+        for m in counters.values():
+            m.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = torch.argmax(logits, -1)[:, None]
+        out = [tok]
+        for i in range(N):
+            logits, cache = decode(params, cache, tok, P + i)
+            tok = torch.argmax(logits, -1)[:, None]
+            out.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = {k: m.launches for k, m in counters.items()}
+    finally:
+        attention.flash_attention, rwkv6.wkv = fa, wk
+    want = {"K4": cfg.n_layers if cfg.block == "attn" else 0,
+            "K5": cfg.n_layers if cfg.block == "rwkv" else 0}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    tokens = torch.cat(out, dim=1)
+    if logits.shape != (B, cfg.vocab) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{name}: logits {tuple(logits.shape)} are "
+                             "misshapen or not finite")
+    if not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise AssertionError(f"{name}: greedy tokens out of range")
+    for k, a in cache.items():
+        if not bool(torch.isfinite(a.float()).all()):
+            raise AssertionError(f"{name}: cache {k} is not finite")
+
+    # one profiled prefill and 4 profiled decode steps: busy share, top ops
+    with profile(activities=[ProfilerActivity.CUDA]) as pp:
+        ta = time.perf_counter()
+        prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as pd:
+        tc = time.perf_counter()
+        for i in range(4):
+            logits, cache = decode(params, cache, tok, P + N + i)
+        torch.cuda.synchronize()
+        td = time.perf_counter()
+    report = {
+        "config": name, "params": n_params, "dtype": cfg.dtype,
+        "batch": B, "prompt": P, "decode_tokens": N, "init_s": init_s,
+        "prefill_ms": (t1 - t0) * 1e3,
+        "prefill_tok_s": B * P / (t1 - t0),
+        "decode_ms_per_token": (t2 - t1) * 1e3 / N,
+        "decode_tok_s": B * N / (t2 - t1),
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "prefill_device_busy_share": device_ms(pp) / ((tb - ta) * 1e3),
+        "decode_device_busy_share": device_ms(pd) / ((td - tc) * 1e3),
+        "prefill_device_ms_by_op": top_ops(pp),
+        "decode_device_ms_per_token_by_op": top_ops(pd, per=4),
+        "sample": tokens[0, :8].tolist()}
+    log(f"[llm] {report}")
+    del params, cache, logits, prefill, decode
+    torch.cuda.empty_cache()
+    return report, seen
+
+
+def llm_kernels(torch, F, inputs, report, fa_ops, fa_ref, wkv_ops, wkv_ref):
+    """K4 and K5 on the inputs the llm run gave them (layer 0), against
+    their plain versions, timed, with their bounds."""
+    (q, k, v), kw = inputs["K4"]
+    causal, q_offset = kw.get("causal", True), kw.get("q_offset", 0)
+    got = fa_ops.flash_attention(q, k, v, causal, q_offset)
+    torch.cuda.synchronize()
+    err = float((got.float() - fa_ref.attention_ref(
+        q, k, v, causal, q_offset).float()).abs().max())
+    if not err <= 2e-2:
+        raise AssertionError(f"K4 differs on the llama3.2-3b inputs: {err}")
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    pairs = (sum(min(T, q_offset + i + 1) for i in range(S)) if causal
+             else S * T)
+    byts = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops = 4 * B * H * hd * pairs
+    t_b, t_o = byts / HBM_BYTES_S * 1e3, ops / BF16_OPS_S * 1e3
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+    k4 = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:64",
+        launches=report["llama3.2-3b"]["launches"]["K4"], max_abs_err=err,
+        **timing(lambda: fa_ops.flash_attention(q, k, v, causal, q_offset),
+                 lambda: fa_ref.attention_ref(q, k, v, causal, q_offset),
+                 sdpa),
+        bound_ms=max(t_b, t_o), bound_by="bytes" if t_b > t_o else
+        "operations",
+        shape=f"q={tuple(q.shape)} kv={tuple(k.shape)} {q.dtype} "
+              f"causal={causal}")
+
+    (r, kk, vv, logw, u, s0), _ = inputs["K5"]
+    y, s1 = wkv_ops.wkv(r, kk, vv, logw, u, s0)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip((y, s1), wkv_ref.wkv_ref(r, kk, vv, logw, u, s0)):
+        e = float((a - b).abs().max())
+        if not e <= 1e-4 * max(float(b.abs().max()), 1.0):
+            raise AssertionError(f"K5 differs on the rwkv6-7b inputs: {e}")
+        err = max(err, e)
+    B, T, H, N = r.shape
+    byts = 4 * (5 * r.numel() + u.numel() + 2 * s0.numel())
+    ops = 4 * B * T * H * N * N
+    t_b, t_o = byts / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    k5 = dict(
+        name="wkv6", route="cuda", source="src/repro_torch/csrc/rwkv_scan.cu",
+        replaces="src/repro/kernels/rwkv_scan/rwkv_scan.py:50",
+        launches=report["rwkv6-7b"]["launches"]["K5"], max_abs_err=err,
+        **timing(lambda: wkv_ops.wkv(r, kk, vv, logw, u, s0),
+                 lambda: wkv_ref.wkv_ref(r, kk, vv, logw, u, s0)),
+        bound_ms=max(t_b, t_o), bound_by="bytes" if t_b > t_o else
+        "operations",
+        shape=f"r={tuple(r.shape)} float32 logw in "
+              f"[{float(logw.min()):.3g}, {float(logw.max()):.3g}]")
+    return [k4, k5]
+
+
+def phase_cpu_llm(torch, dev):
+    """Prefill and 8 greedy decode steps at .reduced() width on the card
+    and on the CPU from the same parameters and tokens.  Returns the largest
+    logit difference per (config, dtype)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, steps
+    errs = {}
+    for name in LLM_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype)
+            card, cpu = (lm.init_params(torch.Generator().manual_seed(7), cfg,
+                                        device=d) for d in (dev, "cpu"))
+            tok = torch.randint(0, cfg.vocab, (4, 24),
+                                generator=torch.Generator().manual_seed(8))
+            pre = steps.make_prefill_step(cfg, q_chunk=16, extra_len=8)
+            dec = steps.make_decode_step(cfg)
+            (la, ca), (lb, cb) = (pre(card, {"tokens": tok.to(dev)}),
+                                  pre(cpu, {"tokens": tok}))
+            worst = 0.0
+            for i in range(9):
+                for what, a, b in [("logits", la, lb)] + [
+                        (k, ca[k], cb[k]) for k in sorted(cb)]:
+                    a, b = a.cpu().float(), b.float()
+                    e = float((a - b).abs().max())
+                    ok = (torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                          if dtype == "float32"
+                          else e <= 5e-2 * float(b.abs().max()))
+                    if not ok:
+                        raise AssertionError(f"{name} {dtype} step {i} "
+                                             f"{what}: card vs CPU {e}")
+                    if what == "logits":
+                        worst = max(worst, e)
+                if i == 8:
+                    break
+                nxt = torch.argmax(lb, -1)[:, None]
+                (la, ca), (lb, cb) = (dec(card, ca, nxt.to(dev), 24 + i),
+                                      dec(cpu, cb, nxt, 24 + i))
+            errs[f"{name}/{dtype}"] = worst
+    log(f"[cpu] reduced LM prefill + decode, card vs CPU, max |logit err| "
+        f"{errs}")
+    return errs
+
+
 def serve(srv, workload):
     futs = [srv.submit(s, k, t) for s, t, k in workload]
     stats = srv.flush()
@@ -182,9 +458,13 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels.cache_lookup import ops as l_ops
     from repro_torch.kernels.cache_lookup import ref as l_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.gather import ops as g_ops
     from repro_torch.kernels.gather import ref as g_ref
     from repro_torch.kernels.segment_agg import ops as s_ops
+    from repro_torch.kernels.rwkv_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv_scan import ref as wkv_ref
     from repro_torch.kernels.segment_agg import ref as s_ref
     from repro_torch.obs import trace
     from torch.profiler import ProfilerActivity, profile
@@ -213,6 +493,10 @@ def main():
     ops, refs = (g_ops, s_ops, l_ops), (g_ref, s_ref, l_ref)
     phase_edges(torch, dev, ops, refs)
     log("[edges] K1, K2, K3 agree with their plain versions")
+    t0 = time.perf_counter()
+    phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref)
+    log(f"[edges] K4, K5 agree with their plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # --- 3. the server end to end -------------------------------------------
     t0 = time.perf_counter()
@@ -408,9 +692,30 @@ def main():
         f"{time.perf_counter() - t0:.1f} s; max |logit err| {cpu_err:.3g}")
     shutil.rmtree(DATA, ignore_errors=True)
 
+    # --- 6. LM serving at full width, one model after the other -------------
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    counters = {"K4": fa_ops, "K5": wkv_ops}
+    llm, inputs = {}, {}
+    for name in LLM_ARCHS:
+        t0 = time.perf_counter()
+        llm[name], seen = run_llm(torch, dev, get_config(name), counters)
+        inputs.update(seen)
+        log(f"[llm] {name} done in {time.perf_counter() - t0:.1f} s")
+
+    # --- 7. K4, K5 on the llm run's own inputs -----------------------------
+    kernels += llm_kernels(torch, F, inputs, llm, fa_ops, fa_ref, wkv_ops,
+                           wkv_ref)
+    del inputs
+    torch.cuda.empty_cache()
+
+    # --- 8. reduced LMs on the card against the CPU ------------------------
+    llm["cpu_max_abs_logit_err"] = phase_cpu_llm(torch, dev)
+
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"server": server, "card": smi}))
+    print(json.dumps({"llm": llm, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,8 @@ imports no JAX, so it runs where the port runs:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -199,3 +201,122 @@ def test_gpu_server_matches_cpu(store):
             assert a["latency_v"] == b["latency_v"]
             np.testing.assert_allclose(a["logits"], b["logits"], rtol=1e-4,
                                        atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# LM serving kernels (K4, K5) and the LM path on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    attention_ref  # noqa: E402
+from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv_scan.ref import wkv_ref  # noqa: E402
+from repro_torch.models import lm, steps  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_gpu_flash_attention_matches_plain(dtype, causal):
+    """K4 against its plain version: ragged S, hd 64/80/128, GQA groups
+    1/3/8, and the model's layout read through strides (a view of a packed
+    qkv projection).  float32 within 2e-5, bf16 within 2e-2."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(4)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for S, hd, G in ((1, 64, 1), (24, 80, 3), (129, 128, 8), (1024, 128, 3)):
+        K, B = 2, 2
+        H = K * G
+        qkv = torch.randn(B, S, H + 2 * K, hd, generator=g, device=dev,
+                          dtype=torch.float32).to(dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+        for off in (0, 5) if causal else (0,):
+            got = fa_ops.flash_attention(q, k, v, causal, q_offset=off)
+            torch.cuda.synchronize()
+            want = attention_ref(q, k, v, causal, q_offset=off)
+            assert (got.float() - want.float()).abs().max() <= tol, \
+                (S, hd, G, off)
+
+
+def test_gpu_flash_attention_refuses_other_forms():
+    dev = _cuda()
+    q = torch.zeros(1, 8, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q[..., :48], q[:, :, :2, :48],
+                               q[:, :, :2, :48])
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa_ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 8, 4, 128, device=dev)[..., ::2]
+        fa_ops.flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="H % K"):
+        fa_ops.flash_attention(q, q[:, :, :3], q[:, :, :3])
+
+
+def test_gpu_wkv_matches_plain():
+    """K5 against the exact recurrence over the clip range of logw, from a
+    nonzero state: y and final state within 1e-4 of the largest
+    magnitude."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    for T, N in ((1, 64), (17, 8), (64, 64), (300, 32)):
+        for lw in (-1e-4, -0.5, -20.0, None):
+            B, H = 2, 3
+            r, k, v = (torch.randn(B, T, H, N, generator=g, device=dev)
+                       for _ in range(3))
+            logw = (torch.full((B, T, H, N), lw, device=dev) if lw is not None
+                    else torch.clamp(-torch.exp(torch.randn(
+                        B, T, H, N, generator=g, device=dev)), -20, -1e-4))
+            u = torch.randn(H, N, generator=g, device=dev) * 0.3
+            s0 = torch.randn(B, H, N, N, generator=g, device=dev)
+            y, s = wkv_ops.wkv(r, k, v, logw, u, s0)
+            torch.cuda.synchronize()
+            yw, sw = wkv_ref(r, k, v, logw, u, s0)
+            for a, b in ((y, yw), (s, sw)):
+                assert bool(torch.isfinite(a).all())
+                assert (a - b).abs().max() <= 1e-4 * max(
+                    b.abs().max().item(), 1.0), (T, N, lw)
+
+
+def test_gpu_wkv_refuses_other_forms():
+    dev = _cuda()
+    r = torch.zeros(1, 4, 2, 8, device=dev)
+    u = torch.zeros(2, 8, device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        z = torch.zeros(1, 4, 1, 128, device=dev)
+        wkv_ops.wkv(z, z, z, z, torch.zeros(1, 128, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        wkv_ops.wkv(r.double(), r.double(), r.double(), r.double(),
+                    u.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 2, 4, 8, device=dev).transpose(1, 2)
+        wkv_ops.wkv(t, t, t, t, u)
+    with pytest.raises(ValueError, match="state"):
+        wkv_ops.wkv(r, r, r, r, u, torch.zeros(1, 2, 8, 4, device=dev))
+
+
+@pytest.mark.parametrize("name", ["llama3.2-3b", "stablelm-3b", "rwkv6-7b"])
+def test_gpu_lm_serving_matches_cpu(name):
+    """Prefill (K4 or K5 on the card) and 4 greedy decode steps at
+    ``.reduced()`` width in float32: logits and caches within 1e-4 of the
+    same parameters on the CPU (plain versions)."""
+    dev = _cuda()
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype="float32")
+    cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    # the same CPU generator draws the same numbers for either device
+    card = lm.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    tok = torch.randint(0, cfg.vocab, (2, 24),
+                        generator=torch.Generator().manual_seed(1))
+    pre, dec = steps.make_prefill_step(cfg, extra_len=4), \
+        steps.make_decode_step(cfg)
+    (la, ca), (lb, cb) = pre(card, {"tokens": tok.to(dev)}), \
+        pre(cpu, {"tokens": tok})
+    for i in range(5):
+        assert torch.allclose(la.cpu(), lb, rtol=1e-4, atol=1e-4), i
+        for key in cb:
+            assert torch.allclose(ca[key].cpu(), cb[key], rtol=1e-4,
+                                  atol=1e-4), (i, key)
+        nxt = torch.argmax(lb, -1)[:, None]
+        (la, ca), (lb, cb) = dec(card, ca, nxt.to(dev), 24 + i), \
+            dec(cpu, cb, nxt, 24 + i)

@@ -89,3 +89,18 @@ def test_default_device_raises_without_a_card(tmp_path):
         HeteroCache(store, np.zeros(256), 8, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_gnn_params(torch.Generator(), "sage", 8, 4, 3)
+
+
+def test_lm_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = get_config("llama3.2-3b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "rwkv6-7b"])

@@ -11,10 +11,14 @@ failure raises and the script exits non-zero:
                csrc with nvcc for sm_90a (one process per source, at once);
   2. edges   — each kernel against its plain PyTorch version on the card
                at the edge cases (K1-K3: B=1, empty tiers, duplicate-heavy
-               batches, odd widths, bf16, out-of-range segment ids; K4:
-               S in {1, 24, 129}, hd in {64, 80, 128}, GQA groups
-               {1, 3, 8}, causal or not, f32 and bf16; K5: T in
-               {1, 17, 64}, logw in {-1e-4, -0.5, -20}, nonzero state);
+               batches, odd widths, bf16, out-of-range segment ids; K4,
+               both routes at their seams, q/k/v views of one packed qkv:
+               f32 at S in {1, 24, 129}, bf16 at S in {1, 24, 129, 1000},
+               hd in {32, 64, 80, 128}, GQA groups {1, 3, 8}, causal or
+               not, causal S=100 over T=612 at q_offset 512, bf16 S=4096
+               at one GQA shape, each call on the route its dtype and
+               width call for; K5: T in {1, 17, 64}, logw in {-1e-4,
+               -0.5, -20}, nonzero state);
   3. serve   — GNNInferenceServer on the IG-shaped graph (269,000
                vertices, 1024-dim f32 rows) with GraphSAGE at hidden 256,
                fanouts (10, 5), 64-seed requests, 8 per micro-batch: the
@@ -35,13 +39,15 @@ failure raises and the script exits non-zero:
                freed before the next): batch 4, a 1024-token prompt, one
                make_prefill_step then 32 make_decode_step calls with greedy
                tokens.  The K4/K5 counters are zeroed just before and read
-               just after: K4 must launch once per llama layer (28), K5
-               once per rwkv layer (32).  Prefill ms, decode ms per token,
-               tok/s, then one profiled prefill and 4 profiled decode
-               steps for the device's busy share and its top operations;
+               just after: K4 must launch once per llama layer (28), all
+               on the tensor-core route, K5 once per rwkv layer (32).
+               Prefill ms, decode ms per token, tok/s, then one profiled
+               prefill and 4 profiled decode steps for the device's busy
+               share and its top operations;
   7. kernels — K4 and K5 against their plain versions on the inputs the
                llm run gave them (layer 0's q/k/v; layer 0's r/k/v/logw),
-               timed as in phase 4, with SDPA as K4's library yardstick;
+               timed as in phase 4, with SDPA as K4's library yardstick
+               (K4's entry names its route, ``kernel_route``);
   8. cpu     — prefill and 8 decode steps at .reduced() width on the card
                and on the CPU (plain versions), both families, float32
                (logits and caches within 1e-4) and bfloat16 (within 5e-2 of
@@ -192,25 +198,45 @@ def phase_edges(torch, dev, ops, refs):
 def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
     """K4 and K5 against their plain versions at the edge cases: K4 within
     2e-5 (float32) or 2e-2 (bf16, about two steps at the outputs' size);
-    K5, y and final state, within 1e-4 of the largest magnitude."""
+    K5, y and final state, within 1e-4 of the largest magnitude.  K4 runs
+    both routes at their seams, q/k/v always views of one packed qkv
+    tensor, and each call must take the route its dtype and width call
+    for (bf16 at hd 64-128: tensor cores; float32, and bf16 at hd 32: CUDA
+    cores)."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for S in (1, 24, 129):
-            for hd in (64, 80, 128):
+
+    def k4(dtype, tol, S, T, hd, G, causal, q_offset=0):
+        K = 2
+        H = K * G
+        qkv = torch.randn(2, max(S, T), H + 2 * K, hd, generator=gen,
+                          device=dev).to(dtype)
+        q, k, v = qkv[:, :S, :H], qkv[:, :T, H:H + K], qkv[:, :T, H + K:]
+        route = ("tensor_cores" if dtype == torch.bfloat16 and hd >= 64
+                 else "cuda_cores")
+        before = fa_ops.route_launches[route]
+        got = fa_ops.flash_attention(q, k, v, causal, q_offset)
+        torch.cuda.synchronize()
+        err = float((got.float() - fa_ref.attention_ref(
+            q, k, v, causal, q_offset).float()).abs().max())
+        case = (f"S={S} T={T} hd={hd} G={G} causal={causal} "
+                f"q_offset={q_offset} {dtype}")
+        if not err <= tol:
+            raise AssertionError(f"K4 differs by {err} at {case}")
+        if fa_ops.route_launches[route] != before + 1:
+            raise AssertionError(f"K4 did not take the {route} route at "
+                                 f"{case}")
+
+    for dtype, tol, lengths in ((torch.float32, 2e-5, (1, 24, 129)),
+                                (torch.bfloat16, 2e-2, (1, 24, 129, 1000))):
+        for S in lengths:
+            for hd in (32, 64, 80, 128):
                 for G in (1, 3, 8):
-                    K = 2
-                    q, k, v = (torch.randn(2, S, n, hd, generator=gen,
-                                           device=dev).to(dtype)
-                               for n in (K * G, K, K))
                     for causal in (True, False):
-                        got = fa_ops.flash_attention(q, k, v, causal)
-                        torch.cuda.synchronize()
-                        err = float((got.float() - fa_ref.attention_ref(
-                            q, k, v, causal).float()).abs().max())
-                        if not err <= tol:
-                            raise AssertionError(
-                                f"K4 differs by {err} at S={S} hd={hd} "
-                                f"G={G} causal={causal} {dtype}")
+                        k4(dtype, tol, S, S, hd, G, causal)
+        for hd in (64, 80, 128):
+            k4(dtype, tol, 100, 612, hd, 3, True, 512)
+    for causal in (True, False):
+        k4(torch.bfloat16, 2e-2, 4096, 4096, 128, 8, causal)
     for T in (1, 17, 64):
         for lw in (-1e-4, -0.5, -20.0):
             for N in (8, 64):
@@ -272,6 +298,8 @@ def run_llm(torch, dev, cfg, counters):
     try:
         for m in counters.values():
             m.launches = 0
+        fa_ops = counters["K4"]
+        fa_ops.route_launches = dict.fromkeys(fa_ops.ROUTES, 0)
         t0 = time.perf_counter()
         logits, cache = prefill(params, {"tokens": prompt})
         torch.cuda.synchronize()
@@ -285,12 +313,18 @@ def run_llm(torch, dev, cfg, counters):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         launches = {k: m.launches for k, m in counters.items()}
+        k4_routes = dict(fa_ops.route_launches)
     finally:
         attention.flash_attention, rwkv6.wkv = fa, wk
     want = {"K4": cfg.n_layers if cfg.block == "attn" else 0,
             "K5": cfg.n_layers if cfg.block == "rwkv" else 0}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    # a bf16 model's K4 launches all take the tensor-core route
+    want_routes = {"tensor_cores": want["K4"], "cuda_cores": 0}
+    if k4_routes != want_routes:
+        raise AssertionError(f"{name}: K4 routes {k4_routes}, expected "
+                             f"{want_routes}")
     tokens = torch.cat(out, dim=1)
     if logits.shape != (B, cfg.vocab) or not bool(
             torch.isfinite(logits.float()).all()):
@@ -321,7 +355,7 @@ def run_llm(torch, dev, cfg, counters):
         "prefill_tok_s": B * P / (t1 - t0),
         "decode_ms_per_token": (t2 - t1) * 1e3 / N,
         "decode_tok_s": B * N / (t2 - t1),
-        "launches": launches,
+        "launches": launches, "k4_routes": k4_routes,
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "prefill_device_busy_share": device_ms(pp) / ((tb - ta) * 1e3),
         "decode_device_busy_share": device_ms(pd) / ((td - tc) * 1e3),
@@ -346,6 +380,11 @@ def llm_kernels(torch, F, inputs, report, fa_ops, fa_ref, wkv_ops, wkv_ref):
     if not err <= 2e-2:
         raise AssertionError(f"K4 differs on the llama3.2-3b inputs: {err}")
     B, S, H, hd = q.shape
+    k4_route = fa_ops.pick_route(q.dtype, hd, [(t.data_ptr(), t.shape,
+                                                t.stride()) for t in (q, k, v)])
+    if k4_route != "tensor_cores":
+        raise AssertionError(f"K4 takes the {k4_route} route on the "
+                             "llama3.2-3b inputs")
     T, K = k.shape[1], k.shape[2]
     pairs = (sum(min(T, q_offset + i + 1) for i in range(S)) if causal
              else S * T)
@@ -358,7 +397,7 @@ def llm_kernels(torch, F, inputs, report, fa_ops, fa_ref, wkv_ops, wkv_ref):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=causal, enable_gqa=True)
     k4 = dict(
-        name="flash_attention", route="cuda",
+        name="flash_attention", route="cuda", kernel_route=k4_route,
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:64",
         launches=report["llama3.2-3b"]["launches"]["K4"], max_abs_err=err,
@@ -486,7 +525,10 @@ def main():
     for name, path in libs.items():
         regs = [ln.strip() for ln in
                 path.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln]
+                if "registers" in ln or "arning" in ln
+                or "Performance Loss" in ln or (
+                    "spill" in ln and ", 0 bytes spill stores, 0 bytes "
+                    "spill loads" not in ln)]
         log(f"[build] {name}: " + (" | ".join(regs) or "(cached)"))
 
     # --- 2. edge cases -------------------------------------------------------

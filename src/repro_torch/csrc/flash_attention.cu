@@ -10,24 +10,31 @@
 // repeated to H heads (ops.py::mha does the jnp.repeat).
 //
 // What changes on Hopper: the blocks of a grid run in parallel in no order,
-// so one CTA owns a tile of 64 queries of one (batch, head) and loops over
-// the key tiles itself, carrying the running max, sum and accumulator in
+// so one CTA owns a tile of queries of one (batch, head) and loops over the
+// key tiles itself, carrying the running max, sum and accumulator in
 // registers.  GQA maps the query head to its kv head instead of copying kv.
 // Ragged S and T are masked in the kernel (no padding in Python).  q, k, v
 // are read through their strides in the model's (B, S, H, hd) layout, so
-// the wrapper copies nothing; only hd must be contiguous.
+// the wrapper copies nothing; only hd must be contiguous.  Heaviest
+// (latest) causal query tiles are scheduled first.
 //
 // Bound on the H100: operations.  The causal prefill does 4 * hd FLOPs per
 // unmasked (query, key) pair — about 26 GFLOP per llama3.2-3b layer at
 // batch 4 x 1024 tokens — over 67 MB of q/k/v/o, so the bf16 tensor cores
-// (989 TFLOP/s) set the floor.  This first version is simple and right: it
-// runs on the CUDA cores in float32 (scores, exponentials and P.V, as the
-// reference does), from shared-memory tiles converted to float32 on load;
-// each thread owns 4 query rows x 4 keys of a score tile and 4 rows x hd/8
-// output columns, and a row's 8 threads are neighbouring lanes of one warp,
-// so row max and sum are three shuffles and P stays warp-private in shared
-// memory.  Heaviest (latest) causal query tiles are scheduled first.
-// wgmma, TMA and bf16 tensor-core products are the later redesign.
+// (989 TFLOP/s) set the floor.  Two routes, chosen by the wrapper
+// (kernels/flash_attention/ops.py::pick_route):
+//
+// * tensor cores (helios_flash_attention_tc): bf16 at head widths 64, 80
+//   and 128, every prefill of the served configs.  wgmma fed by TMA; see
+//   the comment above namespace tc below.
+// * CUDA cores (helios_flash_attention): float32 at every width, and bf16
+//   at widths 8-32 (the reduced configs).  Scores, exponentials and P.V in
+//   float32 from shared-memory tiles converted to float32 on load; each
+//   thread owns 4 query rows x 4 keys of a score tile and 4 rows x hd/8
+//   output columns, and a row's 8 threads are neighbouring lanes of one
+//   warp, so row max and sum are three shuffles and P stays warp-private in
+//   shared memory.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -222,14 +229,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+// float32 at every width; bf16 only at 8-32 (wider bf16 heads take the
+// tensor-core route, so no CUDA-core instance is built for them)
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 int B, int S, int Tk, int H, int K, const Strides& st,
                 int causal, int q_offset, float scale, cudaStream_t s) {
-#define HELIOS_FA_CASE(D)                                                   \
-  case D:                                                                   \
-    return launch<T, D>(q, k, v, o, B, S, Tk, H, K, st, causal, q_offset, \
-                        scale, s);
+#define HELIOS_FA_CASE(D)                                                     \
+  case D:                                                                     \
+    if constexpr (sizeof(T) == 4 || D <= 32)                                  \
+      return launch<T, D>(q, k, v, o, B, S, Tk, H, K, st, causal, q_offset,   \
+                          scale, s);                                          \
+    break;
   switch (hd) {
     HELIOS_FA_CASE(8)
     HELIOS_FA_CASE(16)
@@ -238,19 +249,548 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     HELIOS_FA_CASE(80)
     HELIOS_FA_CASE(128)
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
 #undef HELIOS_FA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+
+
+// ---------------------------------------------------------------------------
+// Tensor-core route: bf16, head widths 64, 80 and 128, on sm_90a.
+//
+// One CTA of three warpgroups owns 128 query rows of one (batch, head).
+// Warpgroup 0 is the producer: one thread issues TMA loads — the query tile
+// once, then key and value tiles of kBK keys into a ring of kStages
+// shared-memory stages, each stage completing on its own mbarrier — and
+// its registers are handed to the consumers with setmaxnreg.  Warpgroups 1
+// and 2 each own 64 query rows (wgmma's M).  Per key tile a consumer
+// computes S = Q K^T with wgmma (bf16 in, float32 out, both operands in
+// shared memory), masks only the tiles that cross the causal diagonal or
+// the end of the keys, runs the online softmax in registers on a log2-scaled
+// score (a row's four values per 8 columns sit in one lane quad: two
+// shuffles), rounds P to bf16 in registers — the reference model rounds P to
+// v's dtype before P.V — and accumulates O += P V with P as wgmma's register
+// operand and V read MN-major from shared memory through the descriptor's
+// transpose bit, so V is never transposed.  The normaliser l sums the
+// unrounded float32 P.  A tile past a warpgroup's last visible key is
+// skipped (its stage is still released).
+//
+// Tiles are stored as the TMA writes them with 128-byte swizzle: a block of
+// 64 head columns (128 bytes) per row, 8-row atoms of 1024 bytes; a width
+// of 128 is two such blocks, and 80 is padded to 128 by the TMA's
+// out-of-bounds zero fill (the padding columns add zeros to S and are not
+// stored).  The same zero fill covers query rows past S and keys past T;
+// padded keys are masked to -inf as well.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBQ = 128;           // query rows per CTA, 64 per consumer
+constexpr int kBK = 128;           // keys per tile
+constexpr int kStages = 2;         // K/V tiles in flight
+constexpr int kThreads = 384;      // producer + 2 consumer warpgroups
+constexpr int kRow = 128;          // bytes of one swizzled row: 64 bf16
+constexpr int kAtom = 8 * kRow;    // one 8-row swizzle atom
+constexpr int kProducerRegs = 24;  // setmaxnreg: 24 * 128 + 240 * 256
+constexpr int kConsumerRegs = 240; //   <= 65,536 registers of the SM
+
+// Shared-memory layout for a head width padded to HDP (64 or 128), in
+// bytes from a 1024-aligned base: Q, kStages K tiles, kStages V tiles, then
+// the mbarriers (Q full; per stage K full, V full and empty).
+template <int HDP>
+struct Layout {
+  static constexpr int kCols = HDP / 64;               // 64-column blocks
+  static constexpr int kQBytes = kCols * kBQ * kRow;
+  static constexpr int kKVBytes = kCols * kBK * kRow;  // one K or V tile
+  static constexpr int kK = kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait for the phase of the given parity to complete.  A wait that outlasts
+// ~2^34 cycles (about 10 s) traps, so a lost load fails the launch instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34))
+      __trap();
+  }
+}
+
+// TMA: the box at coordinates (c0 innermost .. c3) of a 4-D tensor map into
+// shared memory at dst, completing on mbarrier bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes to this point of
+// the program, so the compiler neither reads them early nor reuses them.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 128, f32) = or += A (64 x 16, smem, K-major) * B (128 x 16, smem,
+// K-major)^T; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem,
+// MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem,
+// MN-major: the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HDP / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (HDP == 64)
+    wgmma_rs_n64(d, a, b);
+  else
+    wgmma_rs_n128(d, a, b);
+}
+
+// 2^x by the special-function unit; a result below 2^-126 (a probability
+// that small next to the row's largest) flushes to 0.  exp2f would spend
+// a few more instructions per score keeping such denormals.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// grid (B * H, ceil(S / kBQ)); block kThreads; dynamic smem
+// Layout<HDP>::kBytes.  The tensor maps view q, k, v as (hd, rows, heads,
+// batch), innermost first, in boxes of 64 columns x kBQ (q) or kBK (k, v)
+// rows.  wgmma m64nN's accumulator: register i of a thread (warp w of its
+// warpgroup, lane) holds row 16 w + lane / 4 + 8 ((i / 2) % 2) and column
+// 8 (i / 4) + 2 (lane % 4) + i % 2 of the warpgroup's 64-row tile.  Its
+// 16-column slice kk, as pairs (8 kk + 2 x, 8 kk + 2 x + 1) for x = 0..3,
+// is exactly the register A operand of an m64nNk16 step, so P feeds P.V
+// from registers with no shuffle.
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        __nv_bfloat16* __restrict__ o, int S, int Tk, int H,
+                        int G, int hd, float scale_log2, int causal,
+                        int q_offset) {
+  using L = Layout<HDP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  const auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  const auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  const auto empty = [&](int s) {
+    return q_full + 8 * (1 + 2 * kStages + s);
+  };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  // keys any query of the tile can see
+  const int kv_end = causal ? min(Tk, q_offset + min(q0 + kBQ, S)) : Tk;
+  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 2 * 128);   // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup index, broadcast from lane 0 so the compiler can prove it
+  // uniform: wgmma under a condition it cannot prove uniform is serialized
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {             // ---- producer warpgroup -----------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      const int kvh = h / G;
+      mbar_expect_tx(q_full, L::kQBytes);
+      for (int c = 0; c < L::kCols; ++c)
+        tma_load(sQ + c * kBQ * kRow, &qmap, q_full, 64 * c, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), L::kKVBytes);
+        for (int c = 0; c < L::kCols; ++c)
+          tma_load(sK + s * L::kKVBytes + c * kBK * kRow, &kmap, k_full(s),
+                   64 * c, j * kBK, kvh, b);
+        mbar_expect_tx(v_full(s), L::kKVBytes);
+        for (int c = 0; c < L::kCols; ++c)
+          tma_load(sV + s * L::kKVBytes + c * kBK * kRow, &vmap, v_full(s),
+                   64 * c, j * kBK, kvh, b);
+      }
+    }
+  } else {                   // ---- consumer warpgroups ----------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int w = wg - 1;
+    const int lane = threadIdx.x % 32;
+    const int r0 = q0 + 64 * w;   // the warpgroup's first query row
+    const int row = r0 + 16 * (threadIdx.x % 128 / 32) + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    // keys any query of this warpgroup can see
+    const int my_end = r0 >= S ? 0
+                       : causal ? min(Tk, q_offset + min(r0 + 64, S))
+                                : Tk;
+    const uint32_t sQw = sQ + 64 * w * kRow;
+
+    float acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages, k0 = j * kBK;
+      const uint32_t parity = (j / kStages) & 1;
+      const uint32_t tK = sK + s * L::kKVBytes, tV = sV + s * L::kKVBytes;
+      mbar_wait(k_full(s), parity);
+      if (k0 < my_end) {
+        // S = Q K^T in HDP / 16 steps of 16 head columns: a step moves 32
+        // bytes along a 128-byte swizzled row, then on to the next block
+        // of 64 columns.  The first step overwrites sc.
+        float sc[kBK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          const uint32_t c = kk / 4, x = (kk % 4) * 32;
+          wgmma_ss_n128(sc, smem_desc(sQw + c * kBQ * kRow + x, 16, kAtom),
+                        smem_desc(tK + c * kBK * kRow + x, 16, kAtom), kk);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(sc);
+
+        // mask keys past T and, causally, past each row's position; only
+        // tiles that cross either edge need it
+        if (k0 + kBK > Tk || (causal && k0 + kBK - 1 > q_offset + r0)) {
+#pragma unroll
+          for (int i = 0; i < kBK / 2; ++i) {
+            const int key = k0 + 8 * (i / 4) + col0 + i % 2;
+            const int pos = q_offset + row + 8 * ((i / 2) % 2);
+            if (key >= Tk || (causal && key > pos)) sc[i] = -INFINITY;
+          }
+        }
+
+        // online softmax on the thread's two rows, in log2 units
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i)
+          mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+        float alpha[2], shift[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m[r], quad_max(mx[r]));
+          // a row that has seen no key yet keeps a zero sum and accumulator
+          const float m_use = m_new == -INFINITY ? 0.f : m_new;
+          alpha[r] = fast_exp2((m[r] - m_use) * scale_log2);
+          shift[r] = m_use * scale_log2;
+          m[r] = m_new;
+        }
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < kBK / 2; ++i) {
+          const int r = (i / 2) % 2;
+          sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -shift[r]));
+          sum[r] += sc[i];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+        for (int i = 0; i < HDP / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+        uint32_t p[kBK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            p[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+
+        // O += P V in kBK / 16 steps of 16 keys (2048 bytes of V each); V
+        // is MN-major: 8-key groups kAtom apart, 64-column blocks a whole
+        // block of kBK rows apart
+        mbar_wait(v_full(s), parity);
+        pin(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_pv<HDP>(acc, p[kk],
+                        smem_desc(tV + kk * 16 * kRow, kBK * kRow, kAtom));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(acc);
+        pin(p);
+      } else {
+        mbar_wait(v_full(s), parity);
+      }
+      mbar_arrive(empty(s));
+    }
+
+    // epilogue: O / l (0 for a row that saw no key), bf16 pairs straight to
+    // the (B, S, H, hd) output; the padding columns of hd 80 are dropped
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]);
+      const int sq = row + 8 * r;
+      if (sq >= S) continue;
+      const float inv = lr > 0.f ? 1.f / lr : 0.f;
+      __nv_bfloat16* out = o + ((static_cast<int64_t>(b) * S + sq) * H + h) *
+                                   hd;
+#pragma unroll
+      for (int c = 0; c < HDP / 8; ++c) {
+        const int col = 8 * c + col0;
+        if (col < hd)
+          *reinterpret_cast<__nv_bfloat162*>(out + col) =
+              __floats2bfloat162_rn(acc[4 * c + 2 * r] * inv,
+                                    acc[4 * c + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API call; the library links only the
+// runtime, so the runtime looks the driver's entry point up once.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (batch, rows, heads, hd) bf16 tensor with the given element strides as
+// a 4-D map (hd, rows, heads, batch), boxes of 64 columns x box_rows rows,
+// 128-byte swizzle, zero fill out of bounds.
+CUresult make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
+                  int heads, int hd, int64_t s_batch, int64_t s_row,
+                  int64_t s_head, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_row) * 2,
+                                 static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HDP>
+int launch(const CUtensorMap& qm, const CUtensorMap& km,
+           const CUtensorMap& vm, void* o, int B, int S, int Tk, int H,
+           int K, int hd, int causal, int q_offset, float scale,
+           cudaStream_t stream) {
+  constexpr int bytes = Layout<HDP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  flash_fwd_tc_kernel<HDP><<<grid, kThreads, bytes, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, Tk, H, H / K, hd,
+      scale * 1.4426950408889634f, causal, q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 }  // namespace
 
-// q (B, S, H, hd), k and v (B, T, K, hd), with the given element strides of
-// their batch, sequence and head axes (hd contiguous); o (B, S, H, hd)
-// contiguous, same dtype (float32 when is_bf16 == 0, else bfloat16).
-// hd is 8, 16, 32, 64, 80 or 128 (the model widths, and the reduced
-// configs' 8); H % K == 0.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for an unsupported hd).
+// The CUDA-core route: q (B, S, H, hd), k and v (B, T, K, hd), with the
+// given element strides of their batch, sequence and head axes (hd
+// contiguous); o (B, S, H, hd) contiguous, same dtype (float32 when
+// is_bf16 == 0, else bfloat16).  hd is 8, 16, 32, 64, 80 or 128 for
+// float32 (the model widths, and the reduced configs' 8) and 8, 16 or 32
+// for bfloat16; H % K == 0.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported hd).
 extern "C" int helios_flash_attention(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
     int S, int T, int H, int K, int hd, int64_t q_sb, int64_t q_ss,
@@ -266,4 +806,35 @@ extern "C" int helios_flash_attention(
                                       causal, q_offset, scale, s);
   return dispatch_hd<float>(hd, q, k, v, o, B, S, T, H, K, st, causal,
                             q_offset, scale, s);
+}
+
+// The tensor-core route: q (B, S, H, hd), k and v (B, T, K, hd), bf16, with
+// the given element strides of their batch, sequence and head axes (hd
+// contiguous; base pointers and strides 16-byte multiples, as TMA reads
+// them); o (B, S, H, hd) contiguous bf16.  hd is 64, 80 or 128; H % K == 0.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported shape), or minus the CUresult when a tensor map cannot be
+// built (-1000 when the driver has no cuTensorMapEncodeTiled).
+extern "C" int helios_flash_attention_tc(
+    const void* q, const void* k, const void* v, void* o, int B, int S, int T,
+    int H, int K, int hd, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+    int64_t v_sh, int causal, int q_offset, float scale, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (T <= 0 || K <= 0 || H % K || (hd != 64 && hd != 80 && hd != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!tc::encode_tiled()) return -1000;
+  CUtensorMap qm, km, vm;
+  CUresult r = tc::make_map(&qm, q, B, S, H, hd, q_sb, q_ss, q_sh, tc::kBQ);
+  if (r == CUDA_SUCCESS)
+    r = tc::make_map(&km, k, B, T, K, hd, k_sb, k_ss, k_sh, tc::kBK);
+  if (r == CUDA_SUCCESS)
+    r = tc::make_map(&vm, v, B, T, K, hd, v_sb, v_ss, v_sh, tc::kBK);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd == 64)
+    return tc::launch<64>(qm, km, vm, o, B, S, T, H, K, hd, causal, q_offset,
+                          scale, s);
+  return tc::launch<128>(qm, km, vm, o, B, S, T, H, K, hd, causal, q_offset,
+                         scale, s);
 }

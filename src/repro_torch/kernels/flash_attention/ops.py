@@ -1,11 +1,21 @@
 """Wrapper for the flash-attention kernel (K4) that prefill attention runs.
 
-On CUDA tensors ``flash_attention`` launches ``csrc/flash_attention.cu``
-and counts the launch in ``launches``; on CPU tensors it runs the plain
-version (``ref.py``); anything else raises, and so does a CUDA tensor in a
-form the kernel does not take.  The kernel reads q, k and v in the model's
-own ``(B, S, H, hd)`` layout through their strides (no copy); only the
-head dimension must be contiguous.
+On CUDA tensors ``flash_attention`` launches one of two kernels of
+``csrc/flash_attention.cu``, chosen by ``pick_route`` from the dtype, the
+head width and the alignment of q, k and v:
+
+- ``"tensor_cores"``: bf16 at head widths 64, 80 and 128 — every prefill
+  of the served configs.  wgmma on the bf16 tensor cores, fed by TMA; P is
+  rounded to bf16 before P.V, as the reference model does.
+- ``"cuda_cores"``: float32 at every width, and bf16 at widths 8-32 (the
+  reduced configs).  Scores, softmax and P.V in float32 on the CUDA cores.
+
+Each launch counts in ``launches`` and in its route's ``route_launches``.
+On CPU tensors it runs the plain version (``ref.py``); anything else
+raises, and so does a CUDA tensor in a form neither kernel takes.  Both
+kernels read q, k and v in the model's own ``(B, S, H, hd)`` layout
+through their strides (no copy); only the head dimension must be
+contiguous.
 """
 from __future__ import annotations
 
@@ -17,22 +27,61 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
+ROUTES = ("tensor_cores", "cuda_cores")
 launches = 0    # kernel launches since the last reset (chip_smoke reads it)
+route_launches = dict.fromkeys(ROUTES, 0)   # the same, per route
 HEAD_DIMS = (8, 16, 32, 64, 80, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 80, 128)
+TMA_ALIGN = 16    # bytes: TMA reads base pointers and strides of this unit
 
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
          + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+_ARGS_TC = _ARGS[:4] + _ARGS[5:]    # no dtype flag: bf16 only
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     lib.helios_flash_attention.argtypes = _ARGS
     lib.helios_flash_attention.restype = ctypes.c_int
+    lib.helios_flash_attention_tc.argtypes = _ARGS_TC
+    lib.helios_flash_attention_tc.restype = ctypes.c_int
     return lib
 
 
+def pick_route(dtype: torch.dtype, hd: int, layouts) -> str:
+    """The kernel that takes q, k, v of ``dtype`` and head width ``hd``:
+    ``"tensor_cores"`` for bf16 at widths 64, 80 and 128, else
+    ``"cuda_cores"``.  ``layouts`` gives each tensor's ``(data_ptr, shape,
+    stride)``, strides in elements.  The tensor-core route loads by TMA,
+    which takes only 16-byte-aligned base pointers and strides (the stride
+    of an axis of size 1 is never used): a bf16 tensor at a tensor-core
+    width that breaks that raises ValueError rather than take the other
+    route."""
+    if dtype != torch.bfloat16 or hd not in TENSOR_CORE_HEAD_DIMS:
+        return "cuda_cores"
+    unit = TMA_ALIGN // 2    # bf16 elements
+    for name, (ptr, shape, stride) in zip("qkv", layouts):
+        if ptr % TMA_ALIGN or any(n > 1 and (s <= 0 or s % unit)
+                                  for n, s in zip(shape[:3], stride[:3])):
+            raise ValueError(
+                f"flash_attention: bf16 {name} at head dim {hd} takes the "
+                f"tensor-core route, whose TMA loads need a {TMA_ALIGN}-byte"
+                f"-aligned base pointer and positive strides of a multiple "
+                f"of {unit} elements; got pointer {ptr:#x}, shape "
+                f"{tuple(shape)}, strides {tuple(stride)}")
+    return "tensor_cores"
+
+
+def _tma_strides(t: torch.Tensor) -> list[int]:
+    """Element strides of the batch, sequence and head axes for a tensor
+    map; an axis of size 1 gets a legal placeholder, as TMA checks every
+    stride but never steps along that axis."""
+    return [s if n > 1 else TMA_ALIGN // 2
+            for n, s in zip(t.shape[:3], t.stride()[:3])]
+
+
 def _check(q, k, v) -> None:
-    """Raise unless the CUDA kernel takes (q, k, v) as they are."""
+    """Raise unless the CUDA kernels take (q, k, v) as they are."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"flash_attention: q on {q.device}, k on {k.device},"
                          f" v on {v.device}; all must be on one CUDA device "
@@ -66,24 +115,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, T, K, hd), H % K == 0, float32 or
     bfloat16.  Returns softmax(q k^T / sqrt(hd)) v as (B, S, H, hd) in q's
-    dtype; scores, softmax and P.V in float32.  ``causal``: query i sits at
-    absolute position ``q_offset + i`` and sees keys up to it."""
+    dtype; scores and softmax in float32, P.V in float32 on the CUDA-core
+    route and with P rounded to bf16 on the tensor-core route (the plain
+    version keeps P in float32).  ``causal``: query i sits at absolute
+    position ``q_offset + i`` and sees keys up to it."""
     global launches
     if q.device.type == k.device.type == v.device.type == "cpu":
         return attention_ref(q, k, v, causal, q_offset)
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
+    route = pick_route(q.dtype, hd, [(t.data_ptr(), t.shape, t.stride())
+                                     for t in (q, k, v)])
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     lib = _lib()
-    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
-    rc = lib.helios_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, S, T, H, K, hd, *strides,
-        int(causal), int(q_offset), 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    tail = (int(causal), int(q_offset), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "tensor_cores":
+        strides = [s for t in (q, k, v) for s in _tma_strides(t)]
+        rc = lib.helios_flash_attention_tc(*ptrs, B, S, T, H, K, hd,
+                                           *strides, *tail)
+        if rc < 0:
+            raise RuntimeError(
+                f"flash_attention: no TMA descriptor for q/k/v (CUresult "
+                f"{-rc}; 1000: the driver has no cuTensorMapEncodeTiled)")
+    else:
+        strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
+        rc = lib.helios_flash_attention(*ptrs, int(q.dtype == torch.bfloat16),
+                                        B, S, T, H, K, hd, *strides, *tail)
     build.check(lib, rc, "flash_attention")
     launches += 1
+    route_launches[route] += 1
     return out

@@ -2,10 +2,13 @@
 
 Prefill attention (``attend``) runs the flash-attention kernel K4 on the
 card, which reads q, k, v in the model's ``(B, S, H, hd)`` layout and maps
-query head h to kv head ``h // G`` itself.  On the CPU it runs the plain
-version of the reference's chunked attention, local-attention window
-included.  Single-token decode (``decode_attend``) is an einsum in the
-reference, not a kernel, and stays plain PyTorch on both devices.
+query head h to kv head ``h // G`` itself: bf16 at head widths 64-128 on
+the tensor cores (P rounded to bf16 before P.V, as the reference does),
+float32 and the reduced configs' narrow heads on the CUDA cores.  On the
+CPU it runs the plain version of the reference's chunked attention,
+local-attention window included.  Single-token decode (``decode_attend``)
+is an einsum in the reference, not a kernel, and stays plain PyTorch on
+both devices.
 
 The reference's ``annotate`` sharding hints are dropped: on one card they
 are layout hints with no effect on values (the multi-device slice brings
@@ -141,10 +144,13 @@ def attend(q, k, v, *, causal=True, window=0, q_chunk=512, q_offset=0,
     ``q_offset`` is the absolute position of q[0] within the kv stream.
     Returns (B, S, H*hd).
 
-    On the card: the K4 kernel (``window`` must be 0; it keeps the
-    probabilities in float32, where the reference casts them to v's dtype
-    before P.V, so bf16 results differ at bf16 rounding).  On the CPU: the
-    reference's chunked attention (``_attend_plain``)."""
+    On the card: the K4 kernel (``window`` must be 0).  Its bf16 route
+    rounds the probabilities to bf16 before P.V, as the reference casts
+    them to v's dtype, but from an online softmax: it rounds exp(s - m) for
+    the running max m and divides by the float32 sum at the end, where the
+    reference rounds the normalised probabilities, so bf16 results differ
+    at bf16 rounding.  Its float32 route keeps everything in float32.  On
+    the CPU: the reference's chunked attention (``_attend_plain``)."""
     B, S, H, hd = q.shape
     if q.device.type != "cpu":
         if window:

@@ -219,24 +219,61 @@ from repro_torch.models import lm, steps  # noqa: E402
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_gpu_flash_attention_matches_plain(dtype, causal):
-    """K4 against its plain version: ragged S, hd 64/80/128, GQA groups
-    1/3/8, and the model's layout read through strides (a view of a packed
-    qkv projection).  float32 within 2e-5, bf16 within 2e-2."""
+    """K4 against its plain version on both routes: ragged S and T, hd
+    32/64/80/128, GQA groups 1/3/8, a causal q_offset, and the model's
+    layout read through strides (views of a packed qkv projection).
+    float32 within 2e-5, bf16 within 2e-2.  bf16 at hd 64-128 takes the
+    tensor-core route, everything else the CUDA-core route."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(4)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
-    for S, hd, G in ((1, 64, 1), (24, 80, 3), (129, 128, 8), (1024, 128, 3)):
+    cases = [(S, S, hd, G, off)
+             for S, hd, G in ((1, 64, 1), (24, 80, 3), (129, 128, 8),
+                              (1024, 128, 3), (1000, 64, 8), (24, 32, 3))
+             for off in ((0, 5) if causal else (0,))]
+    if causal:
+        cases += [(100, 612, 128, 3, 512), (100, 612, 80, 1, 512)]
+    if dtype == torch.bfloat16:
+        cases.append((4096, 4096, 128, 3, 0))
+    for S, T, hd, G, off in cases:
         K, B = 2, 2
         H = K * G
-        qkv = torch.randn(B, S, H + 2 * K, hd, generator=g, device=dev,
-                          dtype=torch.float32).to(dtype)
-        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
-        for off in (0, 5) if causal else (0,):
-            got = fa_ops.flash_attention(q, k, v, causal, q_offset=off)
-            torch.cuda.synchronize()
-            want = attention_ref(q, k, v, causal, q_offset=off)
-            assert (got.float() - want.float()).abs().max() <= tol, \
-                (S, hd, G, off)
+        qkv = torch.randn(B, max(S, T), H + 2 * K, hd, generator=g,
+                          device=dev, dtype=torch.float32).to(dtype)
+        q, k, v = qkv[:, :S, :H], qkv[:, :T, H:H + K], qkv[:, :T, H + K:]
+        route = ("tensor_cores" if dtype == torch.bfloat16 and hd >= 64
+                 else "cuda_cores")
+        before = fa_ops.route_launches[route]
+        got = fa_ops.flash_attention(q, k, v, causal, q_offset=off)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, causal, q_offset=off)
+        assert (got.float() - want.float()).abs().max() <= tol, \
+            (S, T, hd, G, off)
+        assert fa_ops.route_launches[route] == before + 1, (S, hd, route)
+
+
+def test_gpu_flash_attention_routes_count_and_refuse_misalignment():
+    """Each route counts its own launches beside the total; a bf16 view at
+    a tensor-core width whose pointer or strides TMA cannot take raises
+    ValueError and launches nothing."""
+    dev = _cuda()
+    fa_ops.launches = 0
+    fa_ops.route_launches = dict.fromkeys(fa_ops.ROUTES, 0)
+    for dtype, hd in ((torch.bfloat16, 128), (torch.float32, 128),
+                      (torch.bfloat16, 32), (torch.bfloat16, 80)):
+        q = torch.randn(1, 8, 4, hd, device=dev).to(dtype)
+        fa_ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    torch.cuda.synchronize()
+    assert fa_ops.route_launches == {"tensor_cores": 2, "cuda_cores": 2}
+    assert fa_ops.launches == 4
+    shifted = torch.zeros(8 * 4 * 64 + 1, dtype=torch.bfloat16,
+                          device=dev)[1:].view(1, 8, 4, 64)
+    padded = torch.zeros(1, 8, 4, 68, dtype=torch.bfloat16,
+                         device=dev)[..., :64]
+    for t in (shifted, padded):
+        with pytest.raises(ValueError, match="tensor-core route"):
+            fa_ops.flash_attention(t, t[:, :, :2], t[:, :, :2])
+    assert fa_ops.launches == 4
 
 
 def test_gpu_flash_attention_refuses_other_forms():

@@ -107,6 +107,43 @@ def test_flash_attention_offset_matches_model_attend(S, T, q_offset):
                                np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
+def _layouts(hd, form):
+    """(data_ptr, shape, stride) of q, k, v as views of one packed
+    (2, 24, 6 + 2 * 2, hd + pad) bf16 projection at base 0x10000; ``form``
+    breaks the alignment TMA needs or gives an axis of size 1 a stride
+    that is never used."""
+    pad = 4 if form == "stride" else 0       # 4 bf16: 8 bytes off
+    base = 0x10000 + (2 if form == "pointer" else 0)
+    B, S, H, K, W = 2, 24, 6, 2, hd + pad
+    st = (S * (H + 2 * K) * W, (H + 2 * K) * W, W, 1)
+    q = (base, (B, S, H, hd), st)
+    k = (base + 2 * H * W, (B, S, K, hd), st)
+    v = (base + 2 * (H + K) * W, (B, S, K, hd), st)
+    if form == "size-1 axis":    # B = S = 1, their strides odd
+        q, k, v = ((p, (1, 1) + shape[2:], (3, 5) + s[2:])
+                   for p, shape, s in (q, k, v))
+    return [q, k, v]
+
+
+@pytest.mark.parametrize("form", ["aligned", "pointer", "stride",
+                                  "size-1 axis"])
+@pytest.mark.parametrize("hd", fa_ops.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_route_choice(dtype, hd, form):
+    """bf16 at head widths 64, 80, 128 takes the tensor-core route (TMA +
+    wgmma); float32, and bf16 at 8-32, the CUDA-core route whatever the
+    alignment.  A bf16 tensor at a tensor-core width whose base pointer or
+    strides are not 16-byte multiples raises instead of switching route."""
+    layouts = _layouts(hd, form)
+    tc = dtype == torch.bfloat16 and hd in fa_ops.TENSOR_CORE_HEAD_DIMS
+    if tc and form in ("pointer", "stride"):
+        with pytest.raises(ValueError, match="tensor-core route"):
+            fa_ops.pick_route(dtype, hd, layouts)
+    else:
+        assert fa_ops.pick_route(dtype, hd, layouts) == (
+            "tensor_cores" if tc else "cuda_cores")
+
+
 def test_flash_attention_refuses_other_devices():
     """A tensor that is neither on the CPU nor on a CUDA device raises; the
     plain version is not run for it."""

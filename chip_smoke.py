@@ -10,15 +10,20 @@ failure raises and the script exits non-zero:
   1. build   — compile every CUDA kernel of both paths from src/repro_torch/
                csrc with nvcc for sm_90a (one process per source, at once);
   2. edges   — each kernel against its plain PyTorch version on the card
-               at the edge cases (K1-K3: B=1, empty tiers, duplicate-heavy
-               batches, odd widths, bf16, out-of-range segment ids; K4,
-               both routes at their seams, q/k/v views of one packed qkv:
-               f32 at S in {1, 24, 129}, bf16 at S in {1, 24, 129, 1000},
-               hd in {32, 64, 80, 128}, GQA groups {1, 3, 8}, causal or
-               not, causal S=100 over T=612 at q_offset 512, bf16 S=4096
-               at one GQA shape, each call on the route its dtype and
-               width call for; K5: T in {1, 17, 64}, logw in {-1e-4,
-               -0.5, -20}, nonzero state);
+               at the edge cases (K1, K3: B=1, empty tiers, duplicate-heavy
+               batches, odd widths, bf16, out-of-range segment ids; K2:
+               widths of 4, 12, 1020, 1024 and 4112 bytes, f32 and bf16, B
+               from 0 to 65,537, int32 and int64 indices, random and
+               sorted with repeats, out-of-range indices, a misaligned
+               view; K4, both routes at their seams, q/k/v views of one
+               packed qkv: f32 at S in {1, 24, 129}, bf16 at S in {1, 24,
+               129, 1000}, hd in {32, 64, 80, 128}, GQA groups {1, 3, 8},
+               causal or not, causal S=100 over T=612 at q_offset 512, bf16
+               S=4096 at one GQA shape, each call on the route its dtype
+               and width call for; K5:
+               N in {8, 16, 32, 64}, T in {0, 1, 5, 17, 64, 1000}, logw at
+               -20, -6, -1e-4 and mixed, with and without a state, B*H of
+               1 and 256);
   3. serve   — GNNInferenceServer on the IG-shaped graph (269,000
                vertices, 1024-dim f32 rows) with GraphSAGE at hidden 256,
                fanouts (10, 5), 64-seed requests, 8 per micro-batch: the
@@ -30,7 +35,9 @@ failure raises and the script exits non-zero:
                inputs the serving run gave them (K1, K2 bit-exact; K3
                within 1e-5 of the largest sum), timed with the L2 cache
                cold (device time from the profiler, and CUDA events) beside
-               the plain version, the bound and a PyTorch library call;
+               the plain version, the bound and a PyTorch library call.
+               K2 on the served expansion and on layer 2's gather, K3 on
+               layer 1's and layer 2's blocks;
   5. cpu     — a fresh server on the CPU (plain versions, same
                parameters) serves the same requests: same answered/shed
                split, logits within 1e-4;
@@ -145,20 +152,87 @@ def timing(kernel, plain, library=None) -> dict:
                 event_ms=k_ev)
 
 
+def k2_entry(torch, g_ops, g_ref, rows, idx):
+    """K2 on (rows, idx): bit-exact against its plain version, timed beside
+    it, ``index_select`` and the bytes bound."""
+    if not torch.equal(g_ops.gather_rows(rows, idx),
+                       g_ref.gather_rows_ref(rows, idx)):
+        raise AssertionError(f"K2 differs on {tuple(rows.shape)}")
+    rb = rows.shape[1] * rows.element_size()
+    n = idx.shape[0]
+    # bound_ms counts a row read for every index, as the earlier slices
+    # did; bound_distinct_ms reads each row the indices name once
+    n_read = int(torch.unique(idx[(idx >= 0) & (idx < rows.shape[0])]).numel())
+    return dict(**timing(lambda: g_ops.gather_rows(rows, idx),
+                         lambda: g_ref.gather_rows_ref(rows, idx),
+                         lambda: torch.index_select(rows, 0, idx)),
+                bound_ms=n * (8 + 2 * rb) / HBM_BYTES_S * 1e3,
+                bound_distinct_ms=(n * (idx.element_size() + rb)
+                                   + n_read * rb) / HBM_BYTES_S * 1e3,
+                bound_by="bytes",
+                shape=f"table={tuple(rows.shape)} {rows.dtype} idx={n} "
+                      f"distinct={n_read}")
+
+
+def k3_entry(torch, s_ops, msgs, dst, n_seg):
+    """K3 on (msgs, dst, n_seg) within 1e-5 of the largest sum of its plain
+    version, timed beside it, ``index_add_`` and the bytes bound."""
+    from repro_torch.kernels.segment_agg import ref as s_ref
+    got = s_ops.segment_sum(msgs, dst, n_seg)
+    torch.cuda.synchronize()
+    want = s_ref.segment_sum_ref(msgs, dst, n_seg)
+    err = float((got - want).abs().max())
+    if err > 1e-5 * max(float(want.abs().max()), 1.0):
+        raise AssertionError(f"K3 differs by {err} on {tuple(msgs.shape)}")
+    E, D = msgs.shape
+    valid = (dst >= 0) & (dst < n_seg)
+
+    def library():
+        out = torch.zeros(n_seg, D, device=msgs.device)
+        return out.index_add_(0, dst[valid], msgs[valid].float())
+    return dict(max_abs_err=err,
+                **timing(lambda: s_ops.segment_sum(msgs, dst, n_seg),
+                         lambda: s_ref.segment_sum_ref(msgs, dst, n_seg),
+                         library),
+                bound_ms=(E * D * msgs.element_size() + E * dst.element_size()
+                          + n_seg * D * 4) / HBM_BYTES_S * 1e3,
+                bound_by="bytes",
+                shape=f"E={E} D={D} n_segments={n_seg}")
+
+
 def phase_edges(torch, dev, ops, refs):
-    """Each kernel against its plain version at the edge cases."""
+    """K1-K3 against their plain versions at the edge cases."""
     g_ops, s_ops, l_ops = ops
     g_ref, s_ref, l_ref = refs
     gen = torch.Generator().manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
-        for n, d, b in ((100, 7, 13), (64, 3, 1), (5, 3, 0), (300, 24, 33)):
+        size = torch.tensor([], dtype=dtype).element_size()
+        # K2 at row widths of 4, 12, 1020, 1024 and 4112 bytes, B = 0 to
+        # 65,537, int32 and int64 indices, random and sorted with repeats
+        # (pairs of equal indices load their row once), and indices
+        # outside the table (zero rows)
+        for row_bytes in (4, 12, 1020, 1024, 4112):
+            n, d = 3000, row_bytes // size
             table = torch.randn(n, d, generator=gen).to(dtype).to(dev)
-            idx = torch.randint(0, n, (b,), generator=gen).to(dev)
-            for ix in (idx, idx.to(torch.int32)):
-                got = g_ops.gather_rows(table, ix)
-                torch.cuda.synchronize()
-                if not torch.equal(got, g_ref.gather_rows_ref(table, ix)):
-                    raise AssertionError(f"K2 differs at {(n, d, b, dtype)}")
+            for b in (0, 1, 7, 640, 3904, 65537):
+                rand = torch.randint(-2, n + 2, (b,), generator=gen).to(dev)
+                for idx in (rand, torch.sort(rand // 3).values):
+                    ok = (idx >= 0) & (idx < n)
+                    want = torch.zeros(b, d, dtype=dtype, device=dev)
+                    want[ok] = table[idx[ok]]
+                    for ix in (idx, idx.to(torch.int32)):
+                        got = g_ops.gather_rows(table, ix)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"K2 differs at {(row_bytes, b, dtype)}")
+        # a view 4 bytes off a 16-byte boundary
+        table = torch.randn(3000 * 256 + 1, generator=gen).to(dev)[1:].view(
+            3000, 256)
+        idx = torch.randint(0, 3000, (3904,), generator=gen).to(dev)
+        if not torch.equal(g_ops.gather_rows(table, idx),
+                           g_ref.gather_rows_ref(table, idx)):
+            raise AssertionError("K2 misreads a misaligned view")
         for e, d, s in ((37, 1, 5), (100, 33, 8), (640, 256, 16)):
             msgs = torch.randn(e, d, generator=gen).to(dtype).to(dev)
             seg = torch.randint(-2, s + 3, (e,), generator=gen).to(dev)
@@ -198,7 +272,8 @@ def phase_edges(torch, dev, ops, refs):
 def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
     """K4 and K5 against their plain versions at the edge cases: K4 within
     2e-5 (float32) or 2e-2 (bf16, about two steps at the outputs' size);
-    K5, y and final state, within 1e-4 of the largest magnitude.  K4 runs
+    K5, y and final state, within 1e-4 of the largest magnitude (1 where
+    that is smaller).  K4 runs
     both routes at their seams, q/k/v always views of one packed qkv
     tensor, and each call must take the route its dtype and width call
     for (bf16 at hd 64-128: tensor cores; float32, and bf16 at hd 32: CUDA
@@ -237,22 +312,34 @@ def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
             k4(dtype, tol, 100, 612, hd, 3, True, 512)
     for causal in (True, False):
         k4(torch.bfloat16, 2e-2, 4096, 4096, 128, 8, causal)
-    for T in (1, 17, 64):
-        for lw in (-1e-4, -0.5, -20.0):
-            for N in (8, 64):
-                B, H = 2, 3
-                r, k, v = (torch.randn(B, T, H, N, generator=gen, device=dev)
-                           for _ in range(3))
-                logw = torch.full((B, T, H, N), lw, device=dev)
-                u = torch.randn(H, N, generator=gen, device=dev) * 0.3
-                s0 = torch.randn(B, H, N, N, generator=gen, device=dev)
-                got = wkv_ops.wkv(r, k, v, logw, u, s0)
-                torch.cuda.synchronize()
-                for a, b in zip(got, wkv_ref.wkv_ref(r, k, v, logw, u, s0)):
-                    err = float((a - b).abs().max())
-                    if not err <= 1e-4 * max(float(b.abs().max()), 1.0):
-                        raise AssertionError(f"K5 differs by {err} at T={T} "
-                                             f"logw={lw} N={N}")
+    for N in (8, 16, 32, 64):
+        for T in (0, 1, 5, 17, 64, 1000):
+            for lw in (-20.0, -6.0, -1e-4, None):     # None: mixed
+                for B, H in ((1, 1), (4, 64)):
+                    for with_state in (True, False):
+                        r, k, v = (torch.randn(B, T, H, N, generator=gen,
+                                               device=dev) for _ in range(3))
+                        logw = (torch.full((B, T, H, N), lw, device=dev)
+                                if lw is not None else torch.clamp(
+                                    -torch.exp(2 * torch.randn(
+                                        B, T, H, N, generator=gen,
+                                        device=dev)), -20, -1e-4))
+                        u = torch.randn(H, N, generator=gen, device=dev) * 0.3
+                        s0 = (torch.randn(B, H, N, N, generator=gen,
+                                          device=dev) if with_state else None)
+                        got = wkv_ops.wkv(r, k, v, logw, u, s0)
+                        torch.cuda.synchronize()
+                        for a, b in zip(got, wkv_ref.wkv_ref(r, k, v, logw,
+                                                             u, s0)):
+                            if b.numel() == 0:
+                                continue
+                            err = float((a - b).abs().max())
+                            if not err <= 1e-4 * max(float(b.abs().max()),
+                                                     1.0):
+                                raise AssertionError(
+                                    f"K5 differs by {err} at N={N} T={T} "
+                                    f"logw={lw} BH={B * H} "
+                                    f"state={with_state}")
 
 
 def top_ops(prof, n=6, per=1):
@@ -551,6 +638,16 @@ def main():
         f"({store.n_rows * store.row_bytes / 1e9:.2f} GB) in "
         f"{time.perf_counter() - t0:.1f} s")
     seen_ids, seen_micro = [], []
+    # the GNN model's first K2 and K3 call at each width (layer 2: hidden)
+    from repro_torch.gnn import models as gnn_models
+    seen_layer = {}
+
+    def first_by_width(key, fn):
+        def call(x, *a):
+            seen_layer.setdefault((key, x.shape[1]), (x, *a))
+            return fn(x, *a)
+        return call
+    model_k2, model_k3 = gnn_models.gather_rows, gnn_models.segment_sum
     with GNNInferenceServer(g, store, ServerConfig(device="cuda", **CFG)) \
             as srv:
         cache, batcher = srv.cache, srv.batcher
@@ -574,6 +671,8 @@ def main():
         torch.cuda.synchronize()
         for m in (g_ops, s_ops, l_ops):
             m.launches = 0
+        gnn_models.gather_rows = first_by_width("K2", model_k2)
+        gnn_models.segment_sum = first_by_width("K3", model_k3)
         # the server's own spans split each micro-batch's wall time into
         # batch build (sampling), gather (cache + IO) and forward; the
         # profiler's device time gives the card's busy share
@@ -593,6 +692,7 @@ def main():
         launches = {"K1": l_ops.launches, "K2": g_ops.launches,
                     "K3": s_ops.launches}
         cache.submit_planned, batcher.build = submit, build_mb
+        gnn_models.gather_rows, gnn_models.segment_sum = model_k2, model_k3
         if min(launches.values()) < 1:
             raise AssertionError(f"a kernel of the path never ran: "
                                  f"{launches}")
@@ -661,18 +761,15 @@ def main():
         torch.cuda.synchronize()
         if not torch.equal(got, g_ref.gather_rows_ref(rows, idx)):
             raise AssertionError("K2 differs on the served expansion")
-        n_idx = idx.shape[0]
+        k2_l2 = k2_entry(torch, g_ops, g_ref,
+                         *seen_layer[("K2", CFG["hidden"])])
         kernels.append(dict(
             name="gather_rows", route="cuda",
             source="src/repro_torch/csrc/gather.cu",
             replaces="src/repro/kernels/gather/gather.py:59",
             launches=launches["K2"], max_abs_err=0.0,
-            **timing(lambda: g_ops.gather_rows(rows, idx),
-                     lambda: g_ref.gather_rows_ref(rows, idx),
-                     lambda: torch.index_select(rows, 0, idx)),
-            bound_ms=(n_idx * (8 + 2 * rb)) / HBM_BYTES_S * 1e3,
-            bound_by="bytes",
-            shape=f"table={tuple(rows.shape)} idx={n_idx}"))
+            **k2_entry(torch, g_ops, g_ref, rows, idx),
+            layer2=k2_l2))
 
         blk = micro.minibatches[0].blocks[-1]      # the first layer applied
         feats = got
@@ -680,30 +777,14 @@ def main():
         dst = torch.from_numpy(blk.dst_pos).to(dev)
         w = torch.from_numpy(blk.edge_mask).to(dev).to(torch.float32)
         msgs = g_ops.gather_rows(feats, src) * w[:, None]
-        n_seg = feats.shape[0]
-        got = s_ops.segment_sum(msgs, dst, n_seg)
-        torch.cuda.synchronize()
-        want = s_ref.segment_sum_ref(msgs, dst, n_seg)
-        err = float((got - want).abs().max())
-        if err > 1e-5 * max(float(want.abs().max()), 1.0):
-            raise AssertionError(f"K3 differs on the served block: {err}")
-        E, D = msgs.shape
-        valid = (dst >= 0) & (dst < n_seg)
-
-        def library():
-            out = torch.zeros(n_seg, D, device=dev)
-            return out.index_add_(0, dst[valid], msgs[valid])
         kernels.append(dict(
             name="segment_sum", route="cuda",
             source="src/repro_torch/csrc/segment_agg.cu",
             replaces="src/repro/kernels/segment_agg/segment_agg.py:32",
-            launches=launches["K3"], max_abs_err=err,
-            **timing(lambda: s_ops.segment_sum(msgs, dst, n_seg),
-                     lambda: s_ref.segment_sum_ref(msgs, dst, n_seg),
-                     library),
-            bound_ms=(E * D * 4 + E * 4 + n_seg * D * 4) / HBM_BYTES_S * 1e3,
-            bound_by="bytes",
-            shape=f"E={E} D={D} n_segments={n_seg}"))
+            launches=launches["K3"],
+            **k3_entry(torch, s_ops, msgs, dst, feats.shape[0]),
+            layer2=k3_entry(torch, s_ops,
+                            *seen_layer[("K3", CFG["hidden"])])))
         params = {"layers": [{k: v.cpu() for k, v in lp.items()}
                              for lp in srv.params["layers"]],
                   "head": {k: v.cpu() for k, v in srv.params["head"].items()}}

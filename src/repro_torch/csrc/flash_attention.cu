@@ -308,63 +308,6 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait for the phase of the given parity to complete.  A wait that outlasts
-// ~2^34 cycles (about 10 s) traps, so a lost load fails the launch instead
-// of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0)
-      t0 = clock64();
-    else if (clock64() - t0 > (1ll << 34))
-      __trap();
-  }
-}
-
-// TMA: the box at coordinates (c0 innermost .. c3) of a 4-D tensor map into
-// shared memory at dst, completing on mbarrier bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units.
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
@@ -713,33 +656,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call; the library links only the
-// runtime, so the runtime looks the driver's entry point up once.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A (batch, rows, heads, hd) bf16 tensor with the given element strides as
 // a 4-D map (hd, rows, heads, batch), boxes of 64 columns x box_rows rows,
 // 128-byte swizzle, zero fill out of bounds.
@@ -823,7 +739,7 @@ extern "C" int helios_flash_attention_tc(
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (T <= 0 || K <= 0 || H % K || (hd != 64 && hd != 80 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!tc::encode_tiled()) return -1000;
+  if (!encode_tiled()) return -1000;
   CUtensorMap qm, km, vm;
   CUresult r = tc::make_map(&qm, q, B, S, H, hd, q_sb, q_ss, q_sh, tc::kBQ);
   if (r == CUDA_SUCCESS)

@@ -1,9 +1,10 @@
 """Wrapper for the WKV6 scan kernel (K5) that RWKV-6 prefill runs.
 
-On CUDA tensors ``wkv`` launches ``csrc/rwkv_scan.cu`` and counts the launch
-in ``launches``; on CPU tensors it runs the plain version (``ref.py``, the
-exact sequential recurrence); anything else raises, and so does a CUDA
-tensor in a form the kernel does not take.
+On CUDA tensors ``wkv`` launches ``csrc/rwkv_scan.cu`` (one CTA per
+(batch, head), tokens staged by TMA, two tokens per state update) and
+counts the launch in ``launches``; on CPU tensors it runs the plain version
+(``ref.py``, the exact sequential recurrence); anything else raises, and so
+does a CUDA tensor in a form the kernel does not take.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.kernels.rwkv_scan.ref import wkv_ref
 
 launches = 0    # kernel launches since the last reset (chip_smoke reads it)
 HEAD_SIZES = (8, 16, 32, 64)
+ALIGN = 16    # bytes
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -34,6 +36,13 @@ def _check(r, k, v, logw, u, state) -> None:
         raise ValueError("wkv: tensors on " + ", ".join(
             str(t.device) for t in ts) + "; all must be on one CUDA device "
             "(or all on the CPU)")
+    _check_forms(r, k, v, logw, u, state)
+
+
+def _check_forms(r, k, v, logw, u, state) -> None:
+    """Raise unless the kernel takes the tensors' shapes, dtypes and
+    layouts."""
+    ts = [r, k, v, logw, u] + ([] if state is None else [state])
     if r.dim() != 4 or any(t.shape != r.shape for t in (k, v, logw)):
         raise ValueError(f"wkv: r, k, v, logw must share one (B, T, H, N) "
                          f"shape; got {[tuple(t.shape) for t in ts[:4]]}")
@@ -50,6 +59,10 @@ def _check(r, k, v, logw, u, state) -> None:
                         + ", ".join(str(t.dtype) for t in ts))
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("wkv: every input must be contiguous")
+    if any(t.data_ptr() % ALIGN for t in ts):
+        raise ValueError(f"wkv: every input must start at a {ALIGN}-byte-"
+                         "aligned address (the kernel stages tokens with "
+                         "TMA)")
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -75,6 +88,10 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), s_in.data_ptr(), y.data_ptr(), s_out.data_ptr(),
         B, T, H, N, torch.cuda.current_stream(r.device).cuda_stream)
+    if rc < 0:
+        raise RuntimeError(f"wkv: no TMA descriptor for r/k/v/logw (CUresult "
+                           f"{-rc}; 1000: the driver has no "
+                           "cuTensorMapEncodeTiled)")
     build.check(lib, rc, "wkv")
     launches += 1
     return y, s_out

@@ -50,6 +50,48 @@ def test_gpu_gather_matches_plain(dtype):
         assert torch.equal(got, gather_rows_ref(table, idx))
 
 
+@pytest.mark.parametrize("row_bytes", [4, 12, 1020, 1024, 4112])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_gather_widths_bit_exact(dtype, row_bytes):
+    """K2 against the plain version, bit for bit, at row widths that pick
+    each copy unit, int32 and int64 indices and B from 1 to 65,537, on
+    random indices and on sorted runs of repeated ones (the pairs the
+    kernel loads once); an index outside the table gives a zero row."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(6)
+    d = row_bytes // torch.tensor([], dtype=dtype).element_size()
+    table = torch.randn(5000, d, generator=g, device=dev).to(dtype)
+    for B in (1, 7, 640, 3904, 65537):
+        rand = torch.randint(0, 5000, (B,), generator=g, device=dev)
+        for idx in (rand, torch.sort(rand // 3).values):
+            want = gather_rows_ref(table, idx)
+            for ix in (idx, idx.to(torch.int32)):
+                before = gather_ops.launches
+                got = gather_ops.gather_rows(table, ix)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (B, ix.dtype)
+                assert gather_ops.launches == before + 1
+    idx = torch.tensor([3, -1, -1, 4999, 5000, 5000, 1 << 30, 0, 0],
+                       device=dev)
+    ok = (idx >= 0) & (idx < 5000)
+    want = torch.zeros(idx.shape[0], d, dtype=dtype, device=dev)
+    want[ok] = table[idx[ok]]
+    assert torch.equal(gather_ops.gather_rows(table, idx), want)
+
+
+def test_gpu_gather_misaligned_view_bit_exact():
+    """A table view 4 bytes off a 16-byte boundary is copied in 4-byte
+    units, bit-exact."""
+    dev = _cuda()
+    flat = torch.randn(3000 * 1024 + 1, device=dev)
+    table = flat[1:].view(3000, 1024)
+    for idx in (torch.randint(0, 3000, (3904,), device=dev),
+                torch.sort(torch.randint(0, 1500, (3905,), device=dev)).values):
+        got = gather_ops.gather_rows(table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gather_rows_ref(table, idx))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_segment_sum_matches_plain(dtype):
     dev = _cuda()
@@ -314,6 +356,38 @@ def test_gpu_wkv_matches_plain():
                 assert bool(torch.isfinite(a).all())
                 assert (a - b).abs().max() <= 1e-4 * max(
                     b.abs().max().item(), 1.0), (T, N, lw)
+
+
+@pytest.mark.parametrize("N", [8, 16, 32, 64])
+def test_gpu_wkv_sweep(N):
+    """K5 against the exact recurrence at T in {0, 1, 5, 17, 64, 1000}, logw
+    at -20, -6, -1e-4 and mixed over the clip range, with and without an
+    initial state, for one (batch, head) and for 256: y and final state
+    within 1e-4 of the largest magnitude."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(N)
+    for T in (0, 1, 5, 17, 64, 1000):
+        for lw in (-20.0, -6.0, -1e-4, None):
+            for B, H in ((1, 1), (4, 64)):
+                for with_state in (True, False):
+                    r, k, v = (torch.randn(B, T, H, N, generator=g,
+                                           device=dev) for _ in range(3))
+                    logw = (torch.full((B, T, H, N), lw, device=dev)
+                            if lw is not None else torch.clamp(-torch.exp(
+                                2 * torch.randn(B, T, H, N, generator=g,
+                                                device=dev)), -20, -1e-4))
+                    u = torch.randn(H, N, generator=g, device=dev) * 0.3
+                    s0 = (torch.randn(B, H, N, N, generator=g, device=dev)
+                          if with_state else None)
+                    got = wkv_ops.wkv(r, k, v, logw, u, s0)
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, wkv_ref(r, k, v, logw, u, s0)):
+                        assert bool(torch.isfinite(a).all())
+                        if b.numel() == 0:
+                            continue
+                        err = (a - b).abs().max().item()
+                        assert err <= 1e-4 * max(b.abs().max().item(), 1.0), \
+                            (T, lw, B * H, with_state)
 
 
 def test_gpu_wkv_refuses_other_forms():

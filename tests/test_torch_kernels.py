@@ -172,6 +172,67 @@ def test_gather_bit_identical_to_pallas(n, d, b, dtype):
         np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+def _gather_indices(pattern: str, n: int, rng) -> np.ndarray:
+    """Index vectors of the forms the kernel treats apart: the pairs of
+    equal neighbours it loads once (sorted runs, as the served expansion
+    has, an odd count so the last pair has one row, all one row) and
+    random order."""
+    if pattern == "random":
+        return rng.integers(0, n, 40)
+    if pattern == "one_row":
+        return np.full(40, n // 2)
+    runs = np.repeat(np.sort(rng.choice(n, 9, replace=False)),
+                     rng.integers(1, 5, 9))
+    return runs if pattern == "sorted_runs" else runs[:len(runs) // 2 * 2 + 1]
+
+
+@pytest.mark.parametrize("pattern", ["random", "sorted_runs", "odd_runs",
+                                     "one_row"])
+@pytest.mark.parametrize("row_bytes", [4, 12, 1020, 1024, 4112, 65536])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_row_widths_and_runs_match_pallas(dtype, row_bytes, pattern):
+    """The plain version the wrapper runs on the CPU against the Pallas
+    kernel (interpret mode) at the row widths, in bytes, that pick the
+    kernel's copy unit (4 to 16 bytes) and at repeated-index patterns;
+    int32 and int64 indices."""
+    rng = np.random.default_rng(row_bytes)
+    jdt, tdt, size = ((jnp.float32, torch.float32, 4) if dtype == "float32"
+                      else (jnp.bfloat16, torch.bfloat16, 2))
+    table = rng.normal(size=(24, row_bytes // size)).astype(np.float32)
+    if dtype == "bfloat16":
+        table = _bf16_exact(table)
+    idx = _gather_indices(pattern, 24, rng).astype(np.int32)
+    want = np.asarray(cache_gather(jnp.asarray(table, jdt), idx,
+                                   use_pallas=True, interpret=True)
+                      .astype(jnp.float32))
+    t = torch.from_numpy(table).to(tdt)
+    for ix in (torch.from_numpy(idx), torch.from_numpy(idx.astype(np.int64))):
+        got = gather_ops.gather_rows(t, ix)
+        assert got.dtype == tdt and got.shape == (len(idx), table.shape[1])
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_gather_refuses_forms_the_kernel_does_not_take():
+    """What the CUDA kernel does not take raises before any launch: checked
+    on meta tensors, as the wrapper checks a CUDA tensor."""
+    def m(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, dtype=dtype, device="meta")
+    idx = m(5, dtype=torch.int64)
+    with pytest.raises(ValueError, match="2-D"):
+        gather_ops._check_forms(m(2, 3, 4), idx)
+    with pytest.raises(ValueError, match="2-D"):
+        gather_ops._check_forms(m(4, 4), m(5, 1, dtype=torch.int64))
+    with pytest.raises(TypeError, match="int32 or int64"):
+        gather_ops._check_forms(m(4, 4), m(5))
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_ops._check_forms(m(4, 8)[:, ::2], idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_ops._check_forms(m(4, 4), m(10, dtype=torch.int64)[::2])
+    gather_ops._check_forms(m(4, 3), idx)                 # 12-byte rows
+    gather_ops._check_forms(m(4, 3, dtype=torch.bfloat16),
+                            idx.to(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # K3: segment sum / mean
 # ---------------------------------------------------------------------------

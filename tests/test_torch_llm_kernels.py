@@ -254,3 +254,25 @@ def test_wkv_refuses_other_devices():
     with pytest.raises(ValueError, match="one CUDA device"):
         wkv_ops.wkv(c, c, c, m, torch.zeros(2, 8))
 
+
+
+def test_wkv_refuses_forms_the_kernel_does_not_take():
+    """Head sizes, dtypes, layouts and alignments the CUDA kernel does not
+    take raise before any launch (the checks it runs on CUDA tensors)."""
+    r = torch.zeros(1, 4, 2, 8)
+    u = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="head size"):
+        z = torch.zeros(1, 4, 1, 128)
+        wkv_ops._check_forms(z, z, z, z, torch.zeros(1, 128), None)
+    with pytest.raises(TypeError, match="float32"):
+        d = r.double()
+        wkv_ops._check_forms(d, d, d, d, u.double(), None)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 2, 4, 8).transpose(1, 2)
+        wkv_ops._check_forms(t, t, t, t, u, None)
+    with pytest.raises(ValueError, match="state"):
+        wkv_ops._check_forms(r, r, r, r, u, torch.zeros(1, 2, 8, 4))
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(r.numel() + 1)[1:].view(1, 4, 2, 8)
+        wkv_ops._check_forms(shifted, r, r, r, u, None)
+    wkv_ops._check_forms(r, r, r, r, u, torch.zeros(1, 2, 8, 8))

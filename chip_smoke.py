@@ -3,6 +3,8 @@
 and LM serving, prefill then greedy decode (K4, K5).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
+                                                    # of another checkout
 
 Imports nothing of JAX and nothing of the reference package.  Phases; any
 failure raises and the script exits non-zero:
@@ -10,9 +12,16 @@ failure raises and the script exits non-zero:
   1. build   — compile every CUDA kernel of both paths from src/repro_torch/
                csrc with nvcc for sm_90a (one process per source, at once);
   2. edges   — each kernel against its plain PyTorch version on the card
-               at the edge cases (K1, K3: B=1, empty tiers, duplicate-heavy
-               batches, odd widths, bf16, out-of-range segment ids; K2:
-               widths of 4, 12, 1020, 1024 and 4112 bytes, f32 and bf16, B
+               at the edge cases (K1: B in {1, 1023, 1024, 1025, 65,537,
+               150,000}, mixed tiers with remote and out-of-range ids,
+               all-device, all-host, all-miss and empty tiers, random ids
+               and a pool of 37 repeated across every 256-position tile,
+               int32 and int64 ids, bit-exact; K3: D in {1, 3, 4, 255,
+               256, 1020, 1024}, f32 and bf16, int32 and int64 ids, E in
+               {0, 1, 4,096, 65,537}, one id over every edge, shuffled runs
+               of 10 and 25, unsorted and out-of-range ids, each call on
+               the route its width calls for; K2: widths of 4, 12, 1020,
+               1024 and 4112 bytes, f32 and bf16, B
                from 0 to 65,537, int32 and int64 indices, random and
                sorted with repeats, out-of-range indices, a misaligned
                view; K4, both routes at their seams, q/k/v views of one
@@ -35,9 +44,20 @@ failure raises and the script exits non-zero:
                inputs the serving run gave them (K1, K2 bit-exact; K3
                within 1e-5 of the largest sum), timed with the L2 cache
                cold (device time from the profiler, and CUDA events) beside
-               the plain version, the bound and a PyTorch library call.
+               the plain version, the bound and a PyTorch library call,
+               each with its device time per launch (``per_launch_ms``).
                K2 on the served expansion and on layer 2's gather, K3 on
-               layer 1's and layer 2's blocks;
+               layer 1's and layer 2's blocks (``kernel_route`` names the
+               route each took).  Then a training-shaped minibatch: 1024
+               seeds from ``draw_unique``, sampled at fanouts (25, 10):
+               K1 on its unique nodes against the serving cache's tiers,
+               K3 on its hop-2 block (messages gathered from a seeded
+               random (N_pad, 1024) f32 block, masked as the model masks
+               them) and at D = 1 on the block's edge counts (the
+               ``training`` and ``training_counts`` rows).  Beside each K1
+               row, ``pcie_probe``: one plain UVA copy of the same
+               host-tier rows (K2's kernel on the pinned tier), its time
+               and the PCIe read rate it reaches against 64 GB/s;
   5. cpu     — a fresh server on the CPU (plain versions, same
                parameters) serves the same requests: same answered/shed
                split, logits within 1e-4;
@@ -62,9 +82,12 @@ failure raises and the script exits non-zero:
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (K1-K5), one ``{"server": ...}`` line, one ``{"llm": ...}`` line, and as
-the last line ``{"ok": true, "device": {...}}``.  Without a CUDA device,
-or outside a checkout of the repository, it prints no result and exits
-non-zero.
+the last line ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels
+DIR`` it imports the port from DIR (another checkout's ``src``, to time
+two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
+and prints the card, a ``{"gnn_kernels_of": DIR, "kernels": [...]}`` line
+and the last line.  Without a CUDA device, or outside a checkout of the
+repository, it prints no result and exits non-zero.
 """
 from __future__ import annotations
 
@@ -90,6 +113,7 @@ REQUESTS, RATE = 64, 20_000     # 64-seed requests; open-loop virtual req/s
 DATA = os.path.join(ROOT, "build", "smoke_data")    # IG-shaped store
 LLM_ARCHS = ("llama3.2-3b", "rwkv6-7b")
 LLM_BATCH, LLM_PROMPT, LLM_DECODE, LLM_SEED = 4, 1024, 32, 0
+TRAIN_BATCH, TRAIN_FANOUTS = 1024, (25, 10)     # the trainer's defaults
 
 
 def log(msg):
@@ -101,6 +125,32 @@ def device_ms(prof) -> float:
     return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
 
 
+def device_events(prof):
+    """The profile's device operations (kernels, copies, fills) in the
+    order they started."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
+def per_launch(both, alone, reps):
+    """[(name, ms per call)] of each device operation of one call, in
+    launch order: the profile of ``reps`` calls each after the zeroing,
+    less the operations the zeroing alone shows; None where the rest does
+    not split into ``reps`` equal calls."""
+    scrub = {e.name for e in device_events(alone)}
+    if not scrub:
+        return None
+    evs = [e for e in device_events(both) if e.name not in scrub]
+    k = len(evs) // reps
+    if not k or k * reps != len(evs):
+        return None
+    return [(evs[j].name[:70], sum(evs[j + k * r].time_range.elapsed_us()
+                                   for r in range(reps)) / reps / 1e3)
+            for j in range(k)]
+
+
 def timed(fn, reps=20, warm=3):
     """Milliseconds per call of ``fn`` with the L2 cache cold, after
     ``warm`` calls: ``(device, events)``.  Before every call a 128 MiB
@@ -108,7 +158,9 @@ def timed(fn, reps=20, warm=3):
     on one input cannot run from L2.  ``events`` brackets each call with
     two CUDA events (launch gaps the host leaves count); ``device`` is the
     call's kernels' and copies' own time from the profiler (CUPTI), less
-    the zeroing, or None where the profiler records no device time."""
+    the zeroing, or None where the profiler records no device time.
+    Returns ``(device, events, per_launch)``, the last the call's device
+    time per launch (``per_launch``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -133,23 +185,35 @@ def timed(fn, reps=20, warm=3):
             scrub.zero_()
         torch.cuda.synchronize()
     dev = (device_ms(both) - device_ms(alone)) / reps
-    return (dev if device_ms(alone) > 0 else None), event_ms
+    return ((dev if device_ms(alone) > 0 else None), event_ms,
+            per_launch(both, alone, reps))
 
 
 def timing(kernel, plain, library=None) -> dict:
     """The kernel line's time fields: device time where the profiler has
-    it, else the event time (``timed_by`` says which), and the event time
-    of the kernel beside it."""
-    k_dev, k_ev = timed(kernel)
-    p_dev, p_ev = timed(plain, reps=5)
-    l_dev, l_ev = timed(library) if library is not None else (None, None)
+    it, else the event time (``timed_by`` says which), the event time of
+    the kernel beside it, and the kernel's device time per launch."""
+    k_dev, k_ev, split = timed(kernel)
+    p_dev, p_ev, _ = timed(plain, reps=5)
+    l_dev, l_ev, _ = timed(library) if library is not None else (None,) * 3
     by_device = k_dev is not None
     return dict(ms=k_dev if by_device else k_ev,
                 plain_ms=p_dev if by_device else p_ev,
                 library_ms=(None if library is None
                             else l_dev if by_device else l_ev),
                 timed_by="profiler" if by_device else "events",
-                event_ms=k_ev)
+                event_ms=k_ev, per_launch_ms=split)
+
+
+def k3_route(s_ops, fn):
+    """The route one call of ``fn`` takes through K3 (None for a K3
+    without routes)."""
+    counts = getattr(s_ops, "route_launches", None)
+    if counts is None:
+        return None
+    before = dict(counts)
+    fn()
+    return next((r for r, n in counts.items() if n != before[r]), None)
 
 
 def k2_entry(torch, g_ops, g_ref, rows, idx):
@@ -174,16 +238,18 @@ def k2_entry(torch, g_ops, g_ref, rows, idx):
                       f"distinct={n_read}")
 
 
-def k3_entry(torch, s_ops, msgs, dst, n_seg):
+def k3_entry(torch, s_ops, msgs, dst, n_seg, label):
     """K3 on (msgs, dst, n_seg) within 1e-5 of the largest sum of its plain
-    version, timed beside it, ``index_add_`` and the bytes bound."""
+    version, timed beside it, ``index_add_`` and the bytes bound; ``label``
+    names the input in ``shape``."""
     from repro_torch.kernels.segment_agg import ref as s_ref
     got = s_ops.segment_sum(msgs, dst, n_seg)
     torch.cuda.synchronize()
     want = s_ref.segment_sum_ref(msgs, dst, n_seg)
     err = float((got - want).abs().max())
     if err > 1e-5 * max(float(want.abs().max()), 1.0):
-        raise AssertionError(f"K3 differs by {err} on {tuple(msgs.shape)}")
+        raise AssertionError(f"K3 differs by {err} on {label}")
+    del got, want
     E, D = msgs.shape
     valid = (dst >= 0) & (dst < n_seg)
 
@@ -191,13 +257,119 @@ def k3_entry(torch, s_ops, msgs, dst, n_seg):
         out = torch.zeros(n_seg, D, device=msgs.device)
         return out.index_add_(0, dst[valid], msgs[valid].float())
     return dict(max_abs_err=err,
+                kernel_route=k3_route(
+                    s_ops, lambda: s_ops.segment_sum(msgs, dst, n_seg)),
                 **timing(lambda: s_ops.segment_sum(msgs, dst, n_seg),
                          lambda: s_ref.segment_sum_ref(msgs, dst, n_seg),
                          library),
                 bound_ms=(E * D * msgs.element_size() + E * dst.element_size()
                           + n_seg * D * 4) / HBM_BYTES_S * 1e3,
                 bound_by="bytes",
-                shape=f"E={E} D={D} n_segments={n_seg}")
+                shape=f"{label}: E={E} D={D} {msgs.dtype} "
+                      f"n_segments={n_seg}")
+
+
+def k1_entry(torch, g_ops, l_ops, l_ref, lk_args, dt, ht, tiers, label):
+    """K1 on (ids, loc, slot) against the tiers (dt, ht), bit-exact
+    against its plain version, timed beside it, with its bound (HBM bytes
+    and the host-tier rows over PCIe, whichever takes longer; ``tiers``
+    are the ids' tiers, host numpy) and the read rate of one plain UVA copy
+    of the same host-tier rows (K2's kernel called on the pinned tier's
+    device pointer, outside the port's wrappers)."""
+    got = l_ops.fused_cache_lookup(*lk_args, dt, ht)
+    torch.cuda.synchronize()
+    want = l_ref.fused_lookup_ref(*lk_args, dt, ht)
+    for k, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"K1 output {k} differs on {label}")
+    del got, want
+    B = lk_args[0].shape[0]
+    rb = dt.shape[1] * dt.element_size()
+    n_dev, n_host = int((tiers == 0).sum()), int((tiers == 1).sum())
+    hbm = B * (lk_args[0].element_size() + 8 + rb + 5 * 4) + n_dev * rb
+    pcie = n_host * rb
+    entry = dict(
+        **timing(lambda: l_ops.fused_cache_lookup(*lk_args, dt, ht),
+                 lambda: l_ref.fused_lookup_ref(*lk_args, dt, ht)),
+        bound_ms=max(hbm / HBM_BYTES_S, pcie / PCIE_BYTES_S) * 1e3,
+        bound_by="bytes",
+        shape=f"{label}: B={B} D={dt.shape[1]} dev_hits={n_dev} "
+              f"host_hits={n_host}")
+    if n_host:
+        entry["pcie_probe"] = pcie_probe(torch, g_ops, l_ops, lk_args, ht,
+                                         tiers == 1)
+    return entry
+
+
+def pcie_probe(torch, g_ops, l_ops, lk_args, ht, host_mask):
+    """One plain UVA copy of the host-tier rows a lookup reads: K2's
+    kernel (a warp per pair of rows, all loads before any store) called
+    through its C entry point on the pinned tier's device pointer.  Its
+    device time and the PCIe read rate it reaches, beside 64 GB/s."""
+    import ctypes
+    from repro_torch.kernels import build
+    ids, _, slot = lk_args
+    idx = slot[ids.long()][torch.from_numpy(host_mask).to(ids.device)].long()
+    n, rb = idx.shape[0], ht.shape[1] * ht.element_size()
+    out = torch.empty(n, ht.shape[1], dtype=ht.dtype, device=ids.device)
+    lib, lk = g_ops._lib(), l_ops._lib()
+    ptr = ctypes.c_void_p()
+    build.check(lk, lk.helios_host_device_ptr(ht.data_ptr(),
+                                              ctypes.byref(ptr)), "pcie")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def copy():
+        build.check(lib, lib.helios_gather_rows(
+            ptr.value, idx.data_ptr(), 1, out.data_ptr(), n, ht.shape[0], rb,
+            stream), "pcie probe")
+    copy()
+    torch.cuda.synchronize()
+    if not torch.equal(out.cpu(), ht[idx.cpu()]):
+        raise AssertionError("the PCIe probe copied other rows")
+    dev_ms, ev_ms, _ = timed(copy)
+    ms = dev_ms if dev_ms is not None else ev_ms
+    return dict(rows=n, bytes=n * rb, ms=ms, event_ms=ev_ms,
+                gb_s=n * rb / ms / 1e6, bound_gb_s=PCIE_BYTES_S / 1e9)
+
+
+def training_rows(torch, dev, g, cache, g_ops, s_ops, l_ops, l_ref):
+    """K1 and K3 on a training-shaped minibatch: 1024 seeds drawn with
+    ``draw_unique`` and sampled at fanouts (25, 10).  K1 on its unique
+    nodes against the cache's tiers; K3 on the hop-2 block (the first
+    layer applied) with messages gathered from a seeded random (N_pad,
+    row_dim) f32 feature block and masked as the model masks them, and at
+    D = 1 on the block's edge counts."""
+    import numpy as np
+    from repro_torch.core.rng import draw_unique
+    from repro_torch.gnn.sampling import NeighborSampler
+    seeds = draw_unique(np.random.default_rng(0), g.n_vertices, TRAIN_BATCH)
+    mb = NeighborSampler(g, TRAIN_FANOUTS, seed=0).sample(seeds)
+    nodes = mb.all_nodes
+    with cache._table_lock:
+        tiers = cache.loc[nodes]
+        lk_args = (torch.from_numpy(nodes.astype("int32")).to(dev),
+                   cache._loc_dev, cache._slot_dev)
+        dt, ht = cache.device_tier, cache.host_tier
+    k1 = k1_entry(torch, g_ops, l_ops, l_ref, lk_args, dt, ht, tiers,
+                  f"training mb.all_nodes, batch {TRAIN_BATCH} fanouts "
+                  f"{TRAIN_FANOUTS}")
+    blk = mb.blocks[-1]
+    n_pad = mb.nodes.shape[0]
+    feats = torch.randn(n_pad, dt.shape[1], device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    src = torch.from_numpy(blk.src_pos).to(dev)
+    dst = torch.from_numpy(blk.dst_pos).to(dev)
+    w = torch.from_numpy(blk.edge_mask).to(dev).to(torch.float32)
+    msgs = g_ops.gather_rows(feats, src) * w[:, None]
+    del feats
+    label = (f"training hop-2 block, {int(blk.edge_mask.sum())} of "
+             f"{len(blk.edge_mask)} edges real")
+    k3 = k3_entry(torch, s_ops, msgs, dst, n_pad, label)
+    del msgs
+    torch.cuda.empty_cache()
+    k3c = k3_entry(torch, s_ops, w[:, None].contiguous(), dst, n_pad,
+                   label + ", counts")
+    return k1, k3, k3c
 
 
 def phase_edges(torch, dev, ops, refs):
@@ -267,6 +439,98 @@ def phase_edges(torch, dev, ops, refs):
         for k, (a, b) in enumerate(zip(got, want)):
             if not torch.equal(a, b):
                 raise AssertionError(f"K1 output {k} differs at B={B}")
+    k3_edges(torch, dev, s_ops, s_ref)
+    k1_edges(torch, dev, l_ops, l_ref)
+
+
+def k3_ids(torch, gen, pattern, E, n_seg):
+    """Segment ids of the forms K3 treats apart: one id over every edge
+    (the sampler's padding), shuffled runs of 10 or 25 (a hop's dst_pos),
+    fully unsorted with ids outside [0, n_seg) (dropped)."""
+    if pattern == "one_id":
+        return torch.full((E,), 3, dtype=torch.int64)
+    if pattern.startswith("runs"):
+        f = int(pattern[4:])
+        return torch.randperm(n_seg, generator=gen)[:-(-E // f)] \
+            .repeat_interleave(f)[:E]
+    return torch.randint(-3, n_seg + 3, (E,), generator=gen)
+
+
+def k3_edges(torch, dev, s_ops, s_ref):
+    """K3 within 1e-5 of the largest sum of its plain version on every
+    route: D in {1, 3, 4, 255, 256, 1020, 1024}, f32 and bf16, int32 and
+    int64 ids, E in {0, 1, 4,096, 65,537} over the id forms of
+    ``k3_ids``; each call must take the route its width and type call
+    for."""
+    gen = torch.Generator().manual_seed(2)
+    mgen = torch.Generator(device=dev).manual_seed(2)
+    cases = ((4096, "one_id"), (4096, "runs25"), (65537, "runs10"),
+             (3000, "unsorted"), (1, "unsorted"), (0, "unsorted"))
+    for dtype in (torch.float32, torch.bfloat16):
+        vec = 4 if dtype == torch.float32 else 8
+        for D in (1, 3, 4, 255, 256, 1020, 1024):
+            route = ("edges" if D <= 4 else "vec" if D % vec == 0
+                     else "scalar")
+            for E, pattern in cases:
+                n_seg = max(E // 5, 8)
+                seg = k3_ids(torch, gen, pattern, E, n_seg).to(dev)
+                msgs = torch.randn(E, D, generator=mgen, device=dev).to(dtype)
+                want = s_ref.segment_sum_ref(msgs, seg, n_seg)
+                for ix in (seg, seg.to(torch.int32)):
+                    before = s_ops.route_launches[route]
+                    got = s_ops.segment_sum(msgs, ix, n_seg)
+                    torch.cuda.synchronize()
+                    case = (f"E={E} {pattern} D={D} {dtype} {ix.dtype}")
+                    err = float((got - want).abs().max()) if E else 0.0
+                    if err > 1e-5 * max(float(want.abs().max()), 1.0):
+                        raise AssertionError(f"K3 differs by {err} at {case}")
+                    if E and s_ops.route_launches[route] != before + 1:
+                        raise AssertionError(f"K3 did not take the {route} "
+                                             f"route at {case}")
+
+
+def k1_edges(torch, dev, l_ops, l_ref):
+    """K1 bit-exact against its plain version at B in {1, 1023, 1024,
+    1025, 65,537, 150,000} (one to hundreds of 256-position tiles), on
+    mixed tiers with remote and out-of-range ids, all-device, all-host and
+    all-miss tables, with random ids and with a pool of 37 ids repeated
+    across every tile; int32 and int64 ids in turn.  The dedup table is
+    reused from call to call, across sizes."""
+    gen = torch.Generator().manual_seed(3)
+    n, D, n_dev, n_host = 200_000, 64, 10_000, 20_000
+    dt = torch.randn(n_dev, D, generator=gen).to(dev)
+    ht = torch.randn(n_host, D, generator=gen).pin_memory()
+    turn = 0
+    for kind in ("mixed", "all_dev", "all_host", "all_miss"):
+        if kind == "mixed":
+            loc = torch.multinomial(torch.tensor([0.05, 0.1, 0.6, 0.25]), n,
+                                    replacement=True, generator=gen)
+        else:
+            loc = torch.full((n,), ("all_dev", "all_host",
+                                    "all_miss").index(kind))
+        loc = loc.to(torch.int32)
+        slot = torch.where(loc == 0, torch.randint(0, n_dev, (n,),
+                                                   generator=gen),
+                           torch.randint(0, n_host, (n,), generator=gen))
+        args = (loc.to(dev), slot.to(torch.int32).to(dev))
+        for B in (1, 1023, 1024, 1025, 65537, 150_000):
+            for pattern in ("random", "pool"):
+                ids = torch.randint(0, n, (B,), generator=gen)
+                if pattern == "pool":
+                    ids = ids[:37][torch.randint(0, min(B, 37), (B,),
+                                                 generator=gen)]
+                if kind == "mixed" and B > 5:
+                    ids[::97] = -1
+                    ids[5::101] = n + 3
+                turn += 1
+                ids = (ids if turn % 2 else ids.to(torch.int32)).to(dev)
+                got = l_ops.fused_cache_lookup(ids, *args, dt, ht)
+                torch.cuda.synchronize()
+                want = l_ref.fused_lookup_ref(ids, *args, dt, ht)
+                for k, (a, b) in enumerate(zip(got, want)):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"K1 output {k} differs at "
+                                             f"B={B} {kind} {pattern}")
 
 
 def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
@@ -571,15 +835,17 @@ def serve(srv, workload):
     return stats, [f.result() for f in futs]
 
 
-def main():
+def main(argv):
     import torch
+    gnn_only = argv[:1] == ["--gnn-kernels"]
+    pkg = os.path.abspath(argv[1]) if gnn_only and len(argv) > 1 else SRC
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available; nothing was run")
         return 2
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
-        log(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout")
+    if not os.path.isdir(os.path.join(pkg, "repro_torch")):
+        log(f"chip_smoke: {pkg}/repro_torch not found; run from a checkout")
         return 3
-    sys.path.insert(0, SRC)
+    sys.path.insert(0, pkg)
     from repro_torch.gnn.graph import make_dataset
     from repro_torch.kernels import build
     from repro_torch.kernels.cache_lookup import ops as l_ops
@@ -619,13 +885,16 @@ def main():
         log(f"[build] {name}: " + (" | ".join(regs) or "(cached)"))
 
     # --- 2. edge cases -------------------------------------------------------
-    ops, refs = (g_ops, s_ops, l_ops), (g_ref, s_ref, l_ref)
-    phase_edges(torch, dev, ops, refs)
-    log("[edges] K1, K2, K3 agree with their plain versions")
-    t0 = time.perf_counter()
-    phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref)
-    log(f"[edges] K4, K5 agree with their plain versions "
-        f"({time.perf_counter() - t0:.1f} s)")
+    if not gnn_only:
+        t0 = time.perf_counter()
+        ops, refs = (g_ops, s_ops, l_ops), (g_ref, s_ref, l_ref)
+        phase_edges(torch, dev, ops, refs)
+        log(f"[edges] K1, K2, K3 agree with their plain versions "
+            f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref)
+        log(f"[edges] K4, K5 agree with their plain versions "
+            f"({time.perf_counter() - t0:.1f} s)")
 
     # --- 3. the server end to end -------------------------------------------
     t0 = time.perf_counter()
@@ -725,34 +994,21 @@ def main():
 
         # --- 4. kernels on the serving run's own inputs -------------------
         kernels = []
-        B = len(seen_ids[0])
         with cache._table_lock:
-            loc_np = cache.loc
+            tiers = cache.loc[seen_ids[0]]
             lk_args = (torch.from_numpy(seen_ids[0].astype("int32")).to(dev),
                        cache._loc_dev, cache._slot_dev)
             dt, ht = cache.device_tier, cache.host_tier
-        got = l_ops.fused_cache_lookup(*lk_args, dt, ht)
-        torch.cuda.synchronize()
-        want = l_ref.fused_lookup_ref(*lk_args, dt, ht)
-        for k, (a, b) in enumerate(zip(got, want)):
-            if not torch.equal(a, b):
-                raise AssertionError(f"K1 output {k} differs on served ids")
-        tiers = loc_np[seen_ids[0]]
-        rb = store.row_bytes
-        hbm = B * (4 + 8 + rb + 5 * 4) + int((tiers == 0).sum()) * rb
-        pcie = int((tiers == 1).sum()) * rb
-        b1 = max(hbm / HBM_BYTES_S, pcie / PCIE_BYTES_S) * 1e3
+        k1_train, k3_train, k3_counts = training_rows(
+            torch, dev, g, cache, g_ops, s_ops, l_ops, l_ref)
         kernels.append(dict(
             name="fused_cache_lookup", route="cuda",
             source="src/repro_torch/csrc/cache_lookup.cu",
             replaces="src/repro/kernels/cache_lookup/cache_lookup.py:106",
             launches=launches["K1"], max_abs_err=0.0,
-            **timing(lambda: l_ops.fused_cache_lookup(*lk_args, dt, ht),
-                     lambda: l_ref.fused_lookup_ref(*lk_args, dt, ht)),
-            bound_ms=b1, bound_by="bytes",
-            shape=f"B={B} D={store.row_dim} dev_hits="
-                  f"{int((tiers == 0).sum())} host_hits="
-                  f"{int((tiers == 1).sum())}"))
+            **k1_entry(torch, g_ops, l_ops, l_ref, lk_args, dt, ht, tiers,
+                       "serving, first micro-batch's ids"),
+            training=k1_train))
 
         micro = seen_micro[0]
         rows = cache.gather(micro.unique_ids)
@@ -782,12 +1038,24 @@ def main():
             source="src/repro_torch/csrc/segment_agg.cu",
             replaces="src/repro/kernels/segment_agg/segment_agg.py:32",
             launches=launches["K3"],
-            **k3_entry(torch, s_ops, msgs, dst, feats.shape[0]),
+            **k3_entry(torch, s_ops, msgs, dst, feats.shape[0],
+                       "serving layer 1"),
             layer2=k3_entry(torch, s_ops,
-                            *seen_layer[("K3", CFG["hidden"])])))
+                            *seen_layer[("K3", CFG["hidden"])],
+                            "serving layer 2"),
+            training=k3_train, training_counts=k3_counts))
         params = {"layers": [{k: v.cpu() for k, v in lp.items()}
                              for lp in srv.params["layers"]],
                   "head": {k: v.cpu() for k, v in srv.params["head"].items()}}
+
+    if gnn_only:
+        shutil.rmtree(DATA, ignore_errors=True)
+        print(smi)
+        print(json.dumps({"gnn_kernels_of": pkg, "kernels": kernels}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # --- 5. the same requests on the CPU, plain versions --------------------
     t0 = time.perf_counter()
@@ -846,4 +1114,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -2,7 +2,9 @@
 
 Same contract as ``repro.kernels.cache_lookup`` (see ``ops.py``):
 fixed-shape padded outputs, first-occurrence dedup by a scatter-min into an
-N-sized table, compacted storage/remote miss lists in batch order.  The
+N-sized table, compacted storage/remote miss lists in batch order.  An id
+outside [0, N) gives a zero row, its own position as first occurrence and
+no miss, as on the card.  The
 host tier may lie on the CPU (pinned) while everything else is on a card:
 its rows are gathered where they live and moved to the output's device.
 """
@@ -16,14 +18,16 @@ def fused_lookup_ref(ids, loc, slot, device_tier, host_tier):
     ids = ids.to(device=dev, dtype=torch.int64)
     B = ids.shape[0]
     pos = torch.arange(B, dtype=torch.int32, device=dev)
+    ok = (ids >= 0) & (ids < loc.shape[0])
+    safe = torch.where(ok, ids, 0)
 
     first_tab = torch.full((loc.shape[0],), B, dtype=torch.int32, device=dev)
-    first_tab.scatter_reduce_(0, ids, pos, reduce="amin")
-    first_idx = first_tab[ids]
+    first_tab.scatter_reduce_(0, safe[ok], pos[ok], reduce="amin")
+    first_idx = torch.where(ok, first_tab[safe], pos)
     is_first = first_idx == pos
 
-    tier = loc[ids].to(torch.int32)
-    slots = slot[ids].to(torch.int64)
+    tier = torch.where(ok, loc[safe].to(torch.int32), -1)
+    slots = slot[safe].to(torch.int64)
     drows = device_tier[torch.where(tier == 0, slots, 0)]
     hsl = torch.where(tier == 1, slots, 0).to(host_tier.device)
     hrows = host_tier[hsl].to(device=dev, dtype=device_tier.dtype)

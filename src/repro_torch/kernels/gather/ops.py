@@ -4,6 +4,14 @@ On a CUDA tensor it launches ``csrc/gather.cu`` (a warp per pair of rows,
 a repeated row loaded once) and counts the launch in ``launches``; on a
 CPU tensor it runs the plain version (``ref.py``); anything else raises.
 Replaces ``repro.kernels.gather.ops.cache_gather``.
+
+An index outside ``[0, N)`` gives a row of zeros, on the card and on the
+CPU alike.  The reference differs there: ``jnp.take`` (its
+``cache_gather`` and the cache's device-tier read) wraps -1 to the last
+row and fills NaN from N up, and the model's ``h[src_pos]`` clamps to
+``[0, N)``.  No path passes such an index (padded positions are 0, cache
+slots are valid); the zero row is what a segment sum's backward needs for
+a dropped id.
 """
 from __future__ import annotations
 
@@ -40,8 +48,9 @@ def _check_forms(table: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table: (N, D) contiguous, any dtype; idx: (B,) int32 or int64 in
-    [0, N) -> (B, D), bit-exact.  B = 0 gives (0, D)."""
+    """table: (N, D) contiguous, any dtype; idx: (B,) int32 or int64 ->
+    (B, D), bit-exact, a zero row where idx is outside [0, N).  B = 0
+    gives (0, D)."""
     global launches
     if table.device.type == "cpu" and idx.device.type == "cpu":
         return gather_rows_ref(table, idx)

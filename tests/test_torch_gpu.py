@@ -128,6 +128,142 @@ def test_gpu_lookup_matches_plain():
             assert torch.equal(a, b), k
 
 
+def _seg_ids(gen, pattern, E, n_seg):
+    """Segment ids as chip_smoke.py's K3 edges draw them: one id over
+    every edge, shuffled runs of 10 or 25, or unsorted with ids outside
+    [0, n_seg)."""
+    if pattern == "one_id":
+        return torch.full((E,), 3, dtype=torch.int64)
+    if pattern.startswith("runs"):
+        f = int(pattern[4:])
+        return torch.randperm(n_seg, generator=gen)[:-(-E // f)] \
+            .repeat_interleave(f)[:E]
+    return torch.randint(-3, n_seg + 3, (E,), generator=gen)
+
+
+@pytest.mark.parametrize("D", [1, 3, 4, 255, 256, 1020, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_segment_sum_edge_set(dtype, D):
+    """K3 within 1e-5 of the largest sum of its plain version at E in {0,
+    1, 4,096, 65,537}: one id over 4,096 edges, shuffled runs of 10 and
+    25, unsorted ids with out-of-range ones; int32 and int64 ids; every
+    call on the route its width and type call for."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(D)
+    mgen = torch.Generator(device=dev).manual_seed(D)
+    vec = 4 if dtype == torch.float32 else 8
+    route = "edges" if D <= 4 else "vec" if D % vec == 0 else "scalar"
+    for E, pattern in ((4096, "one_id"), (4096, "runs25"), (65537, "runs10"),
+                       (3000, "unsorted"), (1, "unsorted"), (0, "unsorted")):
+        n_seg = max(E // 5, 8)
+        seg = _seg_ids(gen, pattern, E, n_seg).to(dev)
+        msgs = torch.randn(E, D, generator=mgen, device=dev).to(dtype)
+        want = segment_sum_ref(msgs, seg, n_seg)
+        for ix in (seg, seg.to(torch.int32)):
+            before = seg_ops.route_launches[route]
+            got = seg_ops.segment_sum(msgs, ix, n_seg)
+            torch.cuda.synchronize()
+            assert got.shape == (n_seg, D)
+            if E:
+                assert (got - want).abs().max() <= 1e-5 * max(
+                    want.abs().max().item(), 1.0), (E, pattern, ix.dtype)
+                assert seg_ops.route_launches[route] == before + 1
+
+
+@pytest.mark.parametrize("route,dtype,D,offset", [
+    ("edges", torch.float32, 1, 0), ("vec", torch.float32, 1024, 0),
+    ("vec", torch.bfloat16, 256, 0), ("scalar", torch.float32, 255, 0),
+    ("scalar", torch.float32, 1024, 1)])
+def test_gpu_segment_sum_each_route(route, dtype, D, offset):
+    """One call per route counts one launch on that route, and sums the
+    served layer's shape (runs of 5 over 3,904 segments) within 1e-5; a
+    message block 4 bytes off a 16-byte boundary takes the scalar route."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    E, n_seg = 3200, 3904
+    flat = torch.randn(E * D + offset, generator=gen, device=dev).to(dtype)
+    msgs = flat[offset:].view(E, D)
+    seg = torch.randperm(n_seg, device=dev)[:E // 5].repeat_interleave(5)
+    before = dict(seg_ops.route_launches)
+    n = seg_ops.launches
+    got = seg_ops.segment_sum(msgs, seg, n_seg)
+    torch.cuda.synchronize()
+    want = segment_sum_ref(msgs, seg, n_seg)
+    assert (got - want).abs().max() <= 1e-5 * max(want.abs().max().item(),
+                                                   1.0)
+    assert seg_ops.launches == n + 1
+    assert {r: seg_ops.route_launches[r] - before[r]
+            for r in seg_ops.ROUTES} == {r: int(r == route)
+                                         for r in seg_ops.ROUTES}
+
+
+@pytest.mark.parametrize("B", [1023, 1024, 1025, 65537, 150000])
+def test_gpu_lookup_multi_cta_bit_exact(B):
+    """K1 bit-exact against its plain version across many 256-position
+    tiles: random ids, a pool of 37 ids repeated across every tile, ids
+    outside the tables, and all-host and all-miss tables; int32 and int64
+    ids; the dedup table is reused from call to call."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(B)
+    n, D = 200_000, 64
+    dt = torch.randn(10_000, D, generator=gen).to(dev)
+    ht = torch.randn(20_000, D, generator=gen).pin_memory()
+    mixed = torch.multinomial(torch.tensor([0.05, 0.1, 0.6, 0.25]), n,
+                              replacement=True, generator=gen)
+    for loc in (mixed, torch.ones(n, dtype=torch.int64),
+                torch.full((n,), 2)):
+        slot = torch.where(loc == 0, torch.randint(0, 10_000, (n,),
+                                                   generator=gen),
+                           torch.randint(0, 20_000, (n,), generator=gen))
+        args = (loc.to(torch.int32).to(dev), slot.to(torch.int32).to(dev))
+        ids = torch.randint(0, n, (B,), generator=gen)
+        pool = ids[:37][torch.randint(0, 37, (B,), generator=gen)]
+        bad = ids.clone()
+        bad[::97] = -1
+        bad[5::101] = n + 3
+        for x in (ids, pool, bad, pool.to(torch.int32)):
+            x = x.to(dev)
+            got = lookup_ops.fused_cache_lookup(x, *args, dt, ht)
+            torch.cuda.synchronize()
+            for k, (a, b) in enumerate(zip(got, fused_lookup_ref(
+                    x, *args, dt, ht))):
+                assert torch.equal(a, b), (k, B)
+
+
+def test_gpu_lookup_threads_share_the_table():
+    """Eight threads (more than the card machine's cores) call K1 at once
+    on one stream, so their launches could interleave on it: each call's
+    outputs stay bit-exact (the dedup table and host list they share are
+    taken one call at a time)."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(21)
+    n = 50_000
+    loc = torch.multinomial(torch.tensor([0.1, 0.2, 0.5, 0.2]), n,
+                            replacement=True, generator=gen)
+    slot = torch.randint(0, 5_000, (n,), generator=gen)
+    args = (loc.to(torch.int32).to(dev), slot.to(torch.int32).to(dev))
+    dt = torch.randn(5_000, 32, generator=gen).to(dev)
+    ht = torch.randn(5_000, 32, generator=gen).pin_memory()
+    batches = [torch.randint(0, n // (1 + k % 3), (500 + 997 * k,),
+                             generator=gen).to(dev) for k in range(64)]
+
+    def one(ids):
+        got = lookup_ops.fused_cache_lookup(ids, *args, dt, ht)
+        torch.cuda.current_stream().synchronize()
+        return all(torch.equal(a, b) for a, b in zip(
+            got, fused_lookup_ref(ids, *args, dt, ht)))
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            futs = [pool.submit(one, b) for b in batches]
+            assert all(f.result(timeout=120) for f in futs)
+    finally:
+        sys.setswitchinterval(old)
+
+
 @pytest.fixture(scope="module")
 def store(tmp_path_factory):
     return FeatureStore(str(tmp_path_factory.mktemp("gpu_feats")),
@@ -154,6 +290,33 @@ def test_gpu_cache_matches_cpu(store, kw):
             a, b = (c.gather(ids) for c in caches)
             assert a.device.type == "cuda"
             assert torch.equal(a.cpu(), b)
+        va, vb = (c.stats()._values() for c in caches)
+        va.pop("wall_s"), vb.pop("wall_s")
+        assert va == vb
+    finally:
+        for c in caches:
+            c.close()
+            c.io.close()
+
+
+def test_gpu_cache_kernel_matches_host_at_training_batch(tmp_path):
+    """The cache's K1 kernel and its host fused plan gather the same bits,
+    with the same stats, at a training-sized batch (100,000 ids with
+    repeats over a 40,000-row store, 5% device and 10% host tiers)."""
+    dev = _cuda()
+    st = FeatureStore(str(tmp_path / "feats"), n_rows=40_000, row_dim=64,
+                      n_shards=4, create=True, rng_seed=7)
+    rng = np.random.default_rng(4)
+    hot = rng.zipf(1.3, 200_000) % 40_000
+    hot = np.bincount(hot, minlength=40_000)
+    caches = [HeteroCache(st, hot, 2_000, 4_000,
+                          make_engine("helios", st, chaos=None), device=dev,
+                          fused_backend=b) for b in ("kernel", "host")]
+    try:
+        for _ in range(2):
+            ids = rng.zipf(1.3, 100_000) % 40_000
+            a, b = (c.gather(ids) for c in caches)
+            assert torch.equal(a, b)
         va, vb = (c.stats()._values() for c in caches)
         va.pop("wall_s"), vb.pop("wall_s")
         assert va == vb

@@ -141,6 +141,62 @@ def test_lookup_out_buffer_is_filled_in_place():
         buf.numpy(), np.asarray(jax_lookup(ids, loc, slot, dev, host)[0]))
 
 
+def test_lookup_out_of_range_ids_give_zero_rows_and_no_miss():
+    """An id outside [0, N) (the kernel's contract, which the reference
+    does not define): a zero row, its own position as first occurrence,
+    no miss and no remote entry; every other output as for the in-range
+    ids alone."""
+    rng = np.random.default_rng(11)
+    n = 300
+    loc, slot = _tables(rng, n, remote=True)
+    dev = rng.normal(size=((loc == 0).sum(), 8)).astype(np.float32)
+    host = rng.normal(size=((loc == 1).sum(), 8)).astype(np.float32)
+    ids = rng.integers(0, 40, 200)
+    bad = np.array([3, 50, 51, 120, 199])
+    ids[bad] = [-1, n, n + 7, -5, 1 << 30]
+    out, fi, mid, mdst, rid, rdst, cnt = (
+        x.numpy() for x in _port_lookup(ids, loc, slot, dev, host))
+    assert not out[bad].any()
+    np.testing.assert_array_equal(fi[bad], bad)
+    assert not set(mdst[:cnt[0]]) & set(bad)
+    assert not set(rdst[:cnt[1]]) & set(bad)
+    good = np.setdiff1d(np.arange(200), bad)
+    ref = _port_lookup(ids[good], loc, slot, dev, host)
+    np.testing.assert_array_equal(out[good], ref[0].numpy())
+    np.testing.assert_array_equal(fi[good], good[ref[1].numpy()])
+    np.testing.assert_array_equal(cnt, ref[6].numpy())
+    np.testing.assert_array_equal(mid[:cnt[0]], ref[2].numpy()[:cnt[0]])
+    np.testing.assert_array_equal(mdst[:cnt[0]],
+                                  good[ref[3].numpy()[:cnt[0]]])
+    assert (mid[cnt[0]:] == -1).all() and (rdst[cnt[1]:] == -1).all()
+
+
+@pytest.mark.parametrize("B,cap,ctas", [(0, 1024, 1), (1, 1024, 1),
+                                        (512, 1024, 8), (513, 2048, 9),
+                                        (11106, 32768, 132),
+                                        (150000, 524288, 132)])
+def test_lookup_table_and_grid_sizes(B, cap, ctas):
+    """The card's dedup table has a power of two of at least 2B slots (and
+    1024); the host-tier rows get one CTA per 64 positions, 1 to 132."""
+    assert lookup_ops.table_capacity(B) == cap
+    assert cap >= 2 * B and cap & (cap - 1) == 0
+    assert lookup_ops.host_ctas(B) == ctas
+
+
+def test_lookup_table_epochs_only_decrease_and_restart():
+    """Every call tags the table with a smaller epoch, never the all-ones
+    word of an unused slot; at 0 the table is cleared and the epochs
+    start over."""
+    t = lookup_ops._Table(torch.device("cpu"), 1024)
+    assert (t.keys == -1).all() and (t.vals == -1).all()
+    assert t.host_count.tolist() == [0]
+    e = [t.next_epoch() for _ in range(3)]
+    assert e == [0xFFFFFFFE, 0xFFFFFFFD, 0xFFFFFFFC]
+    t.keys[:5] = 123
+    t.epoch = 1
+    assert t.next_epoch() == 0xFFFFFFFE and (t.keys == -1).all()
+
+
 # ---------------------------------------------------------------------------
 # K2: row gather
 # ---------------------------------------------------------------------------
@@ -212,6 +268,24 @@ def test_gather_row_widths_and_runs_match_pallas(dtype, row_bytes, pattern):
         np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+def test_gather_plain_version_zero_row_out_of_range():
+    """The plain K2 gives a zero row for an index outside [0, N) (-1, N,
+    2^30), as the card's kernel does, and ``table[idx]`` inside."""
+    rng = np.random.default_rng(12)
+    table = rng.normal(size=(50, 7)).astype(np.float32)
+    idx = np.array([0, -1, 49, 50, 1 << 30, 3, -1, 17])
+    inside = (idx >= 0) & (idx < 50)
+    for dt in (np.int32, np.int64):
+        got = gather_ops.gather_rows(torch.from_numpy(table),
+                                     torch.from_numpy(idx.astype(dt)))
+        assert got.shape == (8, 7)
+        assert not got.numpy()[~inside].any()
+        np.testing.assert_array_equal(got.numpy()[inside],
+                                      table[idx[inside]])
+    empty = gather_ops.gather_rows(torch.zeros(0, 3), torch.tensor([0, -1]))
+    assert empty.shape == (2, 3) and not empty.any()
+
+
 def test_gather_refuses_forms_the_kernel_does_not_take():
     """What the CUDA kernel does not take raises before any launch: checked
     on meta tensors, as the wrapper checks a CUDA tensor."""
@@ -258,6 +332,75 @@ def test_segment_sum_matches_pallas(e, d, s, dtype):
                        interpret=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
+
+
+def _sampler_ids(rng, n_dst, fanout, n_pad, n_seg):
+    """dst_pos as the sampler emits them for one hop: runs of ``fanout``
+    equal ids in shuffled order, then ``n_pad`` padded edges at id 0; a
+    few ids >= n_seg (dropped)."""
+    ids = np.repeat(rng.permutation(n_seg)[:n_dst], fanout)
+    ids = np.concatenate([ids, np.zeros(n_pad, ids.dtype)])
+    ids[rng.integers(0, len(ids), 3)] = n_seg + rng.integers(0, 4, 3)
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("fanout", [10, 25])
+@pytest.mark.parametrize("d", [1, 3, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_sum_sampler_ids_match_pallas(dtype, d, fanout):
+    """K3's plain version against the Pallas kernel (interpret mode) and
+    the reference's oracle on ids shaped like the sampler's: runs of the
+    fanout in shuffled order, padded edges at id 0 whose messages are
+    zero (the model masks them), out-of-range ids; int32 and int64."""
+    rng = np.random.default_rng(fanout * 100 + d)
+    n_seg, n_dst, n_pad = 40, 12, 30
+    segs = _sampler_ids(rng, n_dst, fanout, n_pad, n_seg)
+    msgs = rng.normal(size=(len(segs), d)).astype(np.float32)
+    msgs[len(segs) - n_pad:] = 0.0
+    if dtype == "bfloat16":
+        msgs = _bf16_exact(msgs)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jm = jnp.asarray(msgs, jdt)
+    for ix in (segs, segs.astype(np.int64)):
+        got = seg_ops.segment_sum(torch.from_numpy(msgs).to(tdt),
+                                  torch.from_numpy(ix), n_seg)
+        assert got.dtype == torch.float32 and got.shape == (n_seg, d)
+        for use_pallas in (True, False):
+            want = jax_sum(jm, jnp.asarray(segs), n_seg,
+                           use_pallas=use_pallas, interpret=True)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,D,ptr,route", [
+    (torch.float32, 1, 0, "edges"), (torch.bfloat16, 4, 0, "edges"),
+    (torch.float32, 3, 16, "edges"), (torch.float32, 1024, 0, "vec"),
+    (torch.float32, 1020, 512, "vec"), (torch.float32, 255, 0, "scalar"),
+    (torch.float32, 1024, 4, "scalar"), (torch.bfloat16, 1024, 0, "vec"),
+    (torch.bfloat16, 1020, 0, "scalar"), (torch.bfloat16, 256, 8, "scalar"),
+    (torch.float32, 5, 0, "scalar"), (torch.float32, 8, 0, "vec")])
+def test_segment_sum_route_choice(dtype, D, ptr, route):
+    """D <= 4 takes the edges route; rows of whole 16-byte units at a
+    16-byte aligned address the vec route; anything else the scalar one."""
+    assert seg_ops.pick_route(dtype, D, ptr) == route
+
+
+@pytest.mark.parametrize("route,dtype,E,D,q,chunk", [
+    ("vec", torch.float32, 3200, 1024, 4, 2),
+    ("vec", torch.float32, 256000, 1024, 4, 64),
+    ("vec", torch.float32, 640, 256, 2, 2),
+    ("vec", torch.float32, 25600, 256, 2, 7),
+    ("vec", torch.bfloat16, 3200, 1024, 4, 2),
+    ("vec", torch.float32, 40000, 32, 1, 10),
+    ("scalar", torch.float32, 3200, 255, 8, 2),
+    ("scalar", torch.bfloat16, 65537, 1020, 8, 63),
+    ("scalar", torch.float32, 100, 5, 1, 2)])
+def test_segment_sum_rows_tiling(route, dtype, E, D, q, chunk):
+    """Column units per lane: a power of two up to 4 vectors (8 scalars),
+    no more than the row needs; edges per warp item 2-64, about 132 * 32
+    items in all."""
+    assert seg_ops.rows_tiling(route, dtype, E, D) == (q, chunk)
 
 
 def test_segment_mean_matches_pallas():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one card: GNN inference serving (K1-K3)
-and LM serving, prefill then greedy decode (K4, K5).
+"""Drive the PyTorch/CUDA port on one card: GNN inference serving (K1-K3),
+out-of-core GNN training (K1, K2/K3 forward and backward) and LM
+serving, prefill then greedy decode (K4, K5).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
@@ -61,6 +62,36 @@ failure raises and the script exits non-zero:
   5. cpu     — a fresh server on the CPU (plain versions, same
                parameters) serves the same requests: same answered/shed
                split, logits within 1e-4;
+  5b. train  — a. OutOfCoreGNNTrainer at its defaults (helios, sage,
+               hidden 256, batch 1024, fanouts (25, 10), 5%/10% cache) on
+               the same store, read-only: 2 warm-up batches, then 8
+               counted under the tracer and the profiler with the launch
+               counters zeroed: wall ms per batch, ms per operator
+               (``pipe.*`` spans), the device's busy share and top
+               operations, peak memory, K1's queue lag behind the step on
+               the one stream (CUDA events), losses, virtual_s, cache and
+               IO stats, K2/K3 launches by use.  K1 must launch once
+               per batch; K2 and K3 forward and backward (their wrappers'
+               ``launches_by_use``) at least once.  The 2 warm-up
+               batches run on a trainer of their own with seed 1, so the
+               counted ones repeat none of their seed sets;
+               b. the first counted batch's loss with embedding gradients
+               through the kernels and through the plain versions' own
+               autograd on the same card tensors: every parameter
+               gradient and dL/dfeats within 1e-4 of its largest
+               magnitude; then K2 at both layers' forward gathers and as
+               K3's backward, and K3 as K2's backward at both layers, on
+               the tensors that pass recorded, timed as in phase 4
+               (``train_*`` rows under K2 and K3, each with its launches
+               per step in the counted run);
+               c. a reduced trainer (TRAIN_SMALL: helios-nopipe,
+               trainable embeddings with momentum and sparse Adam, 3
+               batches) on the card and on the CPU over writable stores
+               made alike: sampled batches, cache/IO/write-back stats
+               and virtual_s identical, losses and parameters within
+               1e-4 (tolerances on the stores in ``phase_train_cpu``);
+               two faulted card runs (dL/dfeats in bf16; the gather's
+               gradient cut) are controls the checks must reject;
   6. llm     — llama3.2-3b, then rwkv6-7b, at full published width in
                bf16 with random weights from a seeded CUDA generator (each
                freed before the next): batch 4, a 1024-token prompt, one
@@ -81,8 +112,9 @@ failure raises and the script exits non-zero:
                the largest magnitude).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(K1-K5), one ``{"server": ...}`` line, one ``{"llm": ...}`` line, and as
-the last line ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels
+(K1-K5), one ``{"server": ...}`` line, one ``{"train": ...}`` line, one
+``{"llm": ...}`` line, and as the last line ``{"ok": true, "device":
+{...}}``.  With ``--gnn-kernels
 DIR`` it imports the port from DIR (another checkout's ``src``, to time
 two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
 and prints the card, a ``{"gnn_kernels_of": DIR, "kernels": [...]}`` line
@@ -91,8 +123,10 @@ repository, it prints no result and exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -114,6 +148,13 @@ DATA = os.path.join(ROOT, "build", "smoke_data")    # IG-shaped store
 LLM_ARCHS = ("llama3.2-3b", "rwkv6-7b")
 LLM_BATCH, LLM_PROMPT, LLM_DECODE, LLM_SEED = 4, 1024, 32, 0
 TRAIN_BATCH, TRAIN_FANOUTS = 1024, (25, 10)     # the trainer's defaults
+TRAIN_ROW_DIM, TRAIN_HIDDEN = 1024, 256     # IG rows; the trainer's hidden
+TRAIN_N_PAD = TRAIN_BATCH * (1 + 25 + 25 * 10)      # 282,624 rows per batch
+TRAIN_WARM, TRAIN_COUNTED = 2, 8
+TRAIN_SMALL = dict(vertices=20_000, row_dim=128, batches=3,
+                   mode="helios-nopipe", batch_size=256, fanouts=(10, 5),
+                   hidden=64, train_embeddings=True, embedding_momentum=0.9,
+                   embedding_adam=0.99, chaos=None, seed=0)
 
 
 def log(msg):
@@ -218,21 +259,23 @@ def k3_route(s_ops, fn):
 
 def k2_entry(torch, g_ops, g_ref, rows, idx):
     """K2 on (rows, idx): bit-exact against its plain version, timed beside
-    it, ``index_select`` and the bytes bound."""
+    it, ``index_select`` and the bytes bound: the indices and the output
+    once, and each distinct row the indices name once."""
     if not torch.equal(g_ops.gather_rows(rows, idx),
                        g_ref.gather_rows_ref(rows, idx)):
         raise AssertionError(f"K2 differs on {tuple(rows.shape)}")
     rb = rows.shape[1] * rows.element_size()
     n = idx.shape[0]
-    # bound_ms counts a row read for every index, as the earlier slices
-    # did; bound_distinct_ms reads each row the indices name once
+    # bound_ms reads each row the indices name once (the kernel loads a
+    # repeated row once per pair of equal indices at best); the earlier
+    # slices' figure, a row read for every index, stays beside it
     n_read = int(torch.unique(idx[(idx >= 0) & (idx < rows.shape[0])]).numel())
     return dict(**timing(lambda: g_ops.gather_rows(rows, idx),
                          lambda: g_ref.gather_rows_ref(rows, idx),
                          lambda: torch.index_select(rows, 0, idx)),
-                bound_ms=n * (8 + 2 * rb) / HBM_BYTES_S * 1e3,
-                bound_distinct_ms=(n * (idx.element_size() + rb)
-                                   + n_read * rb) / HBM_BYTES_S * 1e3,
+                bound_ms=(n * (idx.element_size() + rb)
+                          + n_read * rb) / HBM_BYTES_S * 1e3,
+                bound_every_index_ms=n * (8 + 2 * rb) / HBM_BYTES_S * 1e3,
                 bound_by="bytes",
                 shape=f"table={tuple(rows.shape)} {rows.dtype} idx={n} "
                       f"distinct={n_read}")
@@ -829,6 +872,424 @@ def phase_cpu_llm(torch, dev):
     return errs
 
 
+def backward_launches(ops) -> int:
+    """The launches a K2 or K3 wrapper module counted for the other's
+    backward."""
+    return sum(n for use, n in ops.launches_by_use.items()
+               if use[0] == "backward")
+
+
+@contextlib.contextmanager
+def capture(g_ops, s_ops):
+    """The first inputs of each use of K2 and K3 while the block runs:
+    ``_gather`` and ``_segment_sum`` (the forward and backward rules behind
+    ``gather_rows`` and ``segment_sum``) are wrapped, and each use's first
+    call is kept under (kernel, then the key of the wrappers' own
+    ``launches_by_use``).  Counts nothing; yields the dict."""
+    seen = {}
+    orig = (g_ops._gather, s_ops._segment_sum)
+
+    def wrap(name, fn):
+        def call(x, *a, backward=False):
+            key = (name, "backward" if backward else "forward",
+                   tuple(x.shape), a[0].shape[0])
+            seen.setdefault(key, (x, *a))
+            return fn(x, *a, backward=backward)
+        return call
+    g_ops._gather, s_ops._segment_sum = wrap("K2", orig[0]), wrap("K3",
+                                                                  orig[1])
+    try:
+        yield seen
+    finally:
+        g_ops._gather, s_ops._segment_sum = orig
+
+
+def k1_wait(torch, run):
+    """Run ``run()`` with K1's calls in the cache timed against the card:
+    for each call, how far the card's queue lagged the host when K1 was
+    enqueued (the time K1 waited behind earlier work on the one stream),
+    from a CUDA event recorded just before the call, read against an
+    event recorded on an idle card at a known host time; and the device
+    time between events recorded just before and after K1's three
+    launches (the step's kernels, enqueued by another thread, may fall
+    between them).  The lag
+    counts from the idle card's event, so it reads high by one
+    synchronisation's latency (tens of microseconds)."""
+    from repro_torch.core import hetero_cache
+    fn, calls = hetero_cache.fused_cache_lookup, []
+
+    def timed_call(*a, **kw):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.perf_counter()
+        e0.record()
+        out = fn(*a, **kw)
+        e1.record()
+        calls.append((t, e0, e1))
+        return out
+    torch.cuda.synchronize()
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record()
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter()
+    hetero_cache.fused_cache_lookup = timed_call
+    try:
+        result = run()
+    finally:
+        hetero_cache.fused_cache_lookup = fn
+    torch.cuda.synchronize()
+    lag = [ref.elapsed_time(e0) - (t - t_ref) * 1e3 for t, e0, _ in calls]
+    dev = [e0.elapsed_time(e1) for _, e0, e1 in calls]
+    return result, {"calls": len(calls),
+                    "queue_lag_ms": lag, "k1_span_ms": dev,
+                    "queue_lag_ms_mean": sum(lag) / max(len(lag), 1),
+                    "queue_lag_ms_max": max(lag, default=None)}
+
+
+def phase_train(torch, dev, g, store, counters):
+    """Section 5b of the docstring, part a: OutOfCoreGNNTrainer at its
+    defaults on the IG-shaped store (read-only).  A warm-up trainer with
+    seed 1 takes TRAIN_WARM batches, so the counted trainer (seed 0) draws
+    none of the warm-up's seed sets; the counted one then takes
+    TRAIN_COUNTED under the tracer and the profiler.  Returns (report, the
+    first counted step's inputs and parameters, the K2/K3 launches by use
+    as the wrappers counted them)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
+    from repro_torch.obs import trace
+    g_ops, s_ops, l_ops = counters
+    t0 = time.perf_counter()
+    with OutOfCoreGNNTrainer(g, store, TrainerConfig(
+            mode="helios", chaos=None, seed=1)) as warm:
+        warm.train(TRAIN_WARM)
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tr = OutOfCoreGNNTrainer(g, store, TrainerConfig(mode="helios",
+                                                     chaos=None, seed=0))
+    build_s = time.perf_counter() - t0
+    try:
+        step_fn, step_in = tr.step_fn, []
+
+        def step_rec(state, *a):
+            if not step_in:
+                step_in.append((state["params"], a))
+            return step_fn(state, *a)
+        tr.step_fn = step_rec
+        for m in counters:
+            m.launches = 0
+        for m in (g_ops, s_ops):
+            m.launches_by_use.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        n = TRAIN_COUNTED
+        tracer = trace.install()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out, wait = k1_wait(torch, lambda: tr.train(n))
+                wall = time.perf_counter() - t0
+        finally:
+            trace.uninstall()
+        counts = {(k,) + use: c for k, m in (("K2", g_ops), ("K3", s_ops))
+                  for use, c in m.launches_by_use.items()}
+        launches = {"K1": l_ops.launches, "K2": g_ops.launches,
+                    "K2_backward": backward_launches(g_ops),
+                    "K3": s_ops.launches,
+                    "K3_backward": backward_launches(s_ops)}
+        tr.step_fn = step_fn
+        log_ = tr.metrics_log[-n:]
+        report = {
+            "config": dataclasses.asdict(tr.cfg),
+            "vertices": g.n_vertices, "row_dim": store.row_dim,
+            "n_pad": int(tr.sampler._node_pad(tr.cfg.batch_size)),
+            "build_s": build_s, "warmup_batches": TRAIN_WARM,
+            "warmup_seed": 1, "warmup_s": warm_s, "batches": n,
+            "wall_ms_per_batch": wall * 1e3 / n,
+            "pipe_wall_ms_per_batch": {
+                op: sum(sp.wall_s for sp in tracer.spans
+                        if sp.name == f"pipe.{op}") * 1e3 / n
+                for op in out["stages"]},
+            "device_busy_share": device_ms(prof) / (wall * 1e3),
+            "device_ms_per_batch": device_ms(prof) / n,
+            "device_ms_per_batch_by_op": top_ops(prof, n=8, per=n),
+            "k1_wait": {k: v for k, v in wait.items()
+                        if not isinstance(v, list)}
+            | {"queue_lag_ms": [round(x, 3) for x in wait["queue_lag_ms"]],
+               "k1_span_ms": [round(x, 4) for x in wait["k1_span_ms"]]},
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "loss_first": log_[0]["loss"], "loss_last": log_[-1]["loss"],
+            "losses": [m["loss"] for m in log_],
+            "virtual_s": out["virtual_s"],
+            "virtual_per_batch_s": out["virtual_per_batch_s"],
+            # the cache's and engines' counts run from the trainer's start
+            "stats_batches": n,
+            "cache": out["cache"],
+            "io": {k: v for k, v in out["io"].items() if k != "by_class"},
+            "launches": launches,
+            "launches_by_use": {
+                f"{k}/{d}/{'x'.join(map(str, sh))}/idx={i}": c
+                for (k, d, sh, i), c in sorted(counts.items())}}
+    finally:
+        tr.close()
+    if launches["K1"] != n:
+        raise AssertionError(f"K1 launched {launches['K1']} times in {n} "
+                             "training batches, not once per batch")
+    if min(launches.values()) < 1 or launches["K2"] <= launches[
+            "K2_backward"] or launches["K3"] <= launches["K3_backward"]:
+        raise AssertionError(f"a kernel of the training path, forward or "
+                             f"backward, never ran: {launches}")
+    losses = report["losses"]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    log(f"[train] {report}")
+    return report, step_in[0], counts
+
+
+def phase_train_backward(torch, dev, step, ops, refs):
+    """Part b: one step's loss on the first counted minibatch, with
+    embedding gradients, once through the kernels (K2/K3 forward and their
+    backward rules) and once through the plain versions' own autograd on
+    the same card tensors.  Every parameter gradient and dL/dfeats must
+    agree within 1e-4 of the largest magnitude of each (K3 sums with
+    atomics in another order; the GEMMs then carry that).  Returns the
+    largest errors and the kernels' training-shape inputs, recorded in
+    the kernel pass."""
+    from repro_torch.gnn import models as gm
+    from repro_torch.train.optim import tree_leaves, tree_map
+    g_ops, s_ops = ops
+    g_ref, s_ref = refs
+    params, (feats, src, dst, em, labels) = step
+    blocks = list(zip(src, dst, em))
+
+    def grads(gather, ssum):
+        gm.gather_rows, gm.segment_sum = gather, ssum
+        try:
+            p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+            f = feats.detach().requires_grad_(True)
+            loss, _ = gm.gnn_loss(p, f, blocks, labels, TRAIN_BATCH, "sage")
+            out = torch.autograd.grad(loss, tree_leaves(p) + [f])
+            torch.cuda.synchronize()
+            return float(loss.detach()), out
+        finally:
+            gm.gather_rows, gm.segment_sum = g_ops.gather_rows, \
+                s_ops.segment_sum
+    before = (backward_launches(g_ops), backward_launches(s_ops))
+    with capture(g_ops, s_ops) as seen:
+        loss_k, got = grads(g_ops.gather_rows, s_ops.segment_sum)
+    bwd = (backward_launches(g_ops) - before[0],
+           backward_launches(s_ops) - before[1])
+    if bwd != (2, 2):
+        raise AssertionError(f"the kernels' backward launched K2, K3 "
+                             f"{bwd} times, not (2, 2)")
+    loss_p, want = grads(g_ref.gather_rows_ref, s_ref.segment_sum_ref)
+    names = [f"layers/{i}/{k}" for i, lp in enumerate(params["layers"])
+             for k in lp] + [f"head/{k}" for k in params["head"]] + [
+                 "dL/dfeats"]
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        e = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        errs[name] = {"max_abs_err": e, "max_abs": scale}
+        if not e <= 1e-4 * scale:
+            raise AssertionError(f"training backward: {name} differs by {e} "
+                                 f"(largest {scale})")
+    del got, want
+    torch.cuda.empty_cache()
+    report = {"loss_kernels": loss_k, "loss_plain": loss_p,
+              "tolerance": "1e-4 x largest |grad| of each tensor",
+              "grads": errs}
+    log(f"[train-backward] {report}")
+    return report, seen
+
+
+def train_kernel_rows(torch, seen, counts, n_batches, g_ops, g_ref, s_ops):
+    """Parts b's timings: K2 and K3 at the training shapes, forward and
+    as each other's backward, each with its launches per step in the
+    counted run (phase a's ``launches_by_use``)."""
+    N, D, H = TRAIN_N_PAD, TRAIN_ROW_DIM, TRAIN_HIDDEN
+    E1 = TRAIN_BATCH * TRAIN_FANOUTS[0] * TRAIN_FANOUTS[1]   # layer 1
+    E2 = TRAIN_BATCH * TRAIN_FANOUTS[0]                      # layer 2
+    k2, k3 = {}, {}
+    for kernel, rows, label, key in (
+            ("K2", k2, "train_forward_layer1", ("forward", (N, D), E1)),
+            ("K2", k2, "train_forward_layer2", ("forward", (N, H), E2)),
+            ("K2", k2, "train_backward_layer1", ("backward", (N, D), E1)),
+            ("K2", k2, "train_backward_layer2", ("backward", (N, H), E2)),
+            ("K3", k3, "train_backward_layer1", ("backward", (E1, D), E1)),
+            ("K3", k3, "train_backward_layer2", ("backward", (E2, H), E2))):
+        key = (kernel,) + key
+        if key not in seen:
+            raise AssertionError(f"no {key} call was recorded: "
+                                 f"{sorted(seen)}")
+        entry = (k2_entry(torch, g_ops, g_ref, *seen[key]) if kernel == "K2"
+                 else k3_entry(torch, s_ops, *seen[key],
+                               f"training {label}: gather backward"))
+        # the counted run (phase a) computes no dL/dfeats: its layer-1
+        # backward rows launch only under train_embeddings
+        rows[label] = dict(launches_per_step=counts.get(key, 0) / n_batches,
+                           **entry)
+        log(f"[train-kernels] {kernel} {label}: {rows[label]}")
+    return k2, k3
+
+
+def train_small(torch, g, root, where, fault=None):
+    """One TRAIN_SMALL run on ``where`` over a fresh writable store under
+    ``root``: the sampled node sets, the report, the losses, the final
+    parameters (host) and, after the epoch flush, the embedding, momentum
+    and Adam stores' rows (host numpy) and the global Adam step.
+    ``fault`` names a deliberate error for a control run: "bf16_grads"
+    rounds dL/dfeats to bfloat16 before it leaves the step; "no_message_
+    grads" detaches the gather's table, which is what the card did before
+    K2 and K3 carried a gradient (layer 1's message part of dL/dfeats and
+    layer 2's path back to layer 1 are lost)."""
+    import numpy as np
+    from repro_torch.core.iostack import FeatureStore
+    from repro_torch.gnn import models as gm
+    from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
+    from repro_torch.train.optim import tree_leaves
+    cfg = dict(TRAIN_SMALL)
+    n_v, row_dim, n_batches = (cfg.pop("vertices"), cfg.pop("row_dim"),
+                               cfg.pop("batches"))
+    store = FeatureStore(os.path.join(root, f"f_{where}_{fault}"), n_v,
+                         row_dim, n_shards=12, create=True, rng_seed=1,
+                         writable=True)
+    gather = gm.gather_rows
+    if fault == "no_message_grads":
+        gm.gather_rows = lambda t, i: gather(t.detach(), i)
+    try:
+        with OutOfCoreGNNTrainer(g, store, TrainerConfig(
+                device=str(where), **cfg)) as tr:
+            nodes, sample, step = [], tr.sampler.sample, tr.step_fn
+
+            def sample_rec(seeds):
+                mb = sample(seeds)
+                nodes.append(mb.nodes)
+                return mb
+
+            def step_bf16(*a):
+                state, m, fgrad = step(*a)
+                return state, m, fgrad.to(torch.bfloat16).float()
+            tr.sampler.sample = sample_rec
+            if fault == "bf16_grads":
+                tr.step_fn = step_bf16
+            out = tr.train(n_batches)
+            return dict(
+                out=out, nodes=nodes,
+                losses=[m["loss"] for m in tr.metrics_log],
+                params=[t.cpu() for t in tree_leaves(tr.state["params"])],
+                adam_t=tr.embeddings._t,
+                rows=[FeatureStore(store.path + sfx, n_v, row_dim,
+                                   n_shards=12).read_rows(np.arange(n_v))
+                      for sfx in ("", "_momentum", "_adam")])
+    finally:
+        gm.gather_rows = gather
+
+
+def train_small_errors(a, b) -> dict:
+    """Run ``a`` against run ``b`` by every value check of part c: the
+    largest relative loss error, the largest absolute parameter error, the
+    stores' largest absolute errors beside their largest magnitudes, and
+    ``rejected_by``: the checks the pair fails (none for a good pair)."""
+    import numpy as np
+    names = ("embedding", "momentum", "adam")
+    r = {"loss_rel_err": max(abs(x - y) / max(abs(y), 1e-12)
+                             for x, y in zip(a["losses"], b["losses"])),
+         "param_max_abs_err": max(float((x - y).abs().max())
+                                  for x, y in zip(a["params"], b["params"])),
+         "store_rows_max_abs_err": {n: float(np.abs(x - y).max()) for n, x, y
+                                    in zip(names, a["rows"], b["rows"])},
+         "store_rows_max_abs": {n: float(np.abs(y).max())
+                                for n, y in zip(names, b["rows"])}}
+    err, top = r["store_rows_max_abs_err"], r["store_rows_max_abs"]
+    r["rejected_by"] = [name for name, ok in (
+        ("loss", r["loss_rel_err"] <= 1e-4),
+        ("params", r["param_max_abs_err"] <= 1e-4),
+        ("embedding", err["embedding"] <= 1e-3),
+        ("momentum", err["momentum"] <= 1e-4 * top["momentum"]),
+        ("adam", err["adam"] <= 1e-4 * top["adam"])) if not ok]
+    return r
+
+
+def near_eps(a, b) -> dict:
+    """Where the card's and the CPU's embedding rows differ by more than
+    1e-5: how many elements, and for them the Adam denominator's root
+    (sqrt(m2 / (1 - b2^t)), the scale of the element's gradient) and the
+    momentum on both devices, beside the same over every element the
+    training touched.  The sparse Adam step is lr * m / (that root + eps):
+    where the root is near eps (1e-8) or below, a gradient's absolute
+    error is multiplied by about lr / eps = 5e6 in the update."""
+    import numpy as np
+    b2 = TRAIN_SMALL["embedding_adam"]
+    diff = np.abs(a["rows"][0] - b["rows"][0])
+    over = diff > 1e-5
+
+    def root(run):
+        return np.sqrt(run["rows"][2] / (1.0 - b2 ** run["adam_t"]))
+
+    def stats(x):
+        return ({"min": float(x.min()), "median": float(np.median(x)),
+                 "max": float(x.max())} if x.size else None)
+    touched = b["rows"][2] > 0
+    return {"elements_over_1e-5": int(over.sum()),
+            "largest_err": float(diff.max()),
+            "adam_root_card": stats(root(a)[over]),
+            "adam_root_cpu": stats(root(b)[over]),
+            "abs_momentum_card": stats(np.abs(a["rows"][1][over])),
+            "abs_momentum_cpu": stats(np.abs(b["rows"][1][over])),
+            "adam_root_cpu_touched": stats(root(b)[touched]),
+            "eps": 1e-8}
+
+
+def phase_train_cpu(torch, dev):
+    """Part c: the trainer on the card against itself on the CPU at a
+    reduced size (TRAIN_SMALL) in helios-nopipe with trainable embeddings
+    (momentum 0.9, sparse Adam 0.99) over writable stores made alike:
+    sampled batches, cache/IO/write-back stats and virtual_s identical;
+    losses within 1e-4 relative and the final parameters within 1e-4
+    absolute (K3's atomics and cuBLAS sum in other orders than the CPU).
+    After the epoch flush the momentum and Adam stores agree within 1e-4
+    of their largest magnitude, and the embedding rows within 1e-3
+    absolute (2% of one step's embedding_lr, 0.05): the sparse Adam step
+    multiplies a gradient element's absolute error by up to lr / eps where
+    its root second moment is near eps, which ``near_eps`` shows for the
+    elements that differ.  Two faulted card runs are controls, each of
+    which the checks must reject: dL/dfeats rounded to bf16, and the
+    gather's gradient cut as it was before the repair."""
+    import tempfile
+    import numpy as np
+    from repro_torch.gnn.graph import synth_graph
+    g = synth_graph(TRAIN_SMALL["vertices"], 10, skew=1.2, seed=0)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        a, b = (train_small(torch, g, d, w) for w in (dev, "cpu"))
+        controls = {f: train_small(torch, g, d, dev, f)
+                    for f in ("bf16_grads", "no_message_grads")}
+    for x, y in zip(a["nodes"], b["nodes"]):
+        if not np.array_equal(x, y):
+            raise AssertionError("the card sampled other batches than the "
+                                 "CPU")
+    for k in ("cache", "io", "writeback", "virtual_s"):
+        if a["out"][k] != b["out"][k]:
+            raise AssertionError(f"train {k} differs between card and CPU: "
+                                 f"{a['out'][k]} vs {b['out'][k]}")
+    errs = train_small_errors(a, b)
+    report = {"config": TRAIN_SMALL, "batches": len(a["nodes"]), **errs,
+              "near_eps": near_eps(a, b),
+              "controls": {f: train_small_errors(c, b)
+                           for f, c in controls.items()},
+              "losses_card": a["losses"], "losses_cpu": b["losses"],
+              "virtual_s": a["out"]["virtual_s"],
+              "identical": ["sampled nodes", "cache", "io", "writeback",
+                            "virtual_s"]}
+    log(f"[train-cpu] {report}")
+    if errs["rejected_by"]:
+        raise AssertionError(f"training card vs CPU fails the "
+                             f"{errs['rejected_by']} checks: {errs}")
+    for f, c in report["controls"].items():
+        if not c["rejected_by"]:
+            raise AssertionError(f"the card vs CPU checks pass the faulted "
+                                 f"control {f}: {c}")
+    return report
+
+
 def serve(srv, workload):
     futs = [srv.submit(s, k, t) for s, t, k in workload]
     stats = srv.flush()
@@ -1081,7 +1542,24 @@ def main(argv):
     server["cpu_max_abs_logit_err"] = cpu_err
     log(f"[cpu] same {st_cpu.served} requests on the CPU in "
         f"{time.perf_counter() - t0:.1f} s; max |logit err| {cpu_err:.3g}")
+
+    # --- 5b. out-of-core training on the card ---------------------------
+    t0 = time.perf_counter()
+    train, step, counts = phase_train(torch, dev, g, store,
+                                      (g_ops, s_ops, l_ops))
     shutil.rmtree(DATA, ignore_errors=True)
+    train["backward"], seen = phase_train_backward(
+        torch, dev, step, (g_ops, s_ops), (g_ref, s_ref))
+    del step
+    k2_rows, k3_rows = train_kernel_rows(torch, seen, counts,
+                                         TRAIN_COUNTED, g_ops, g_ref, s_ops)
+    by_name = {k["name"]: k for k in kernels}
+    by_name["gather_rows"].update(k2_rows)
+    by_name["segment_sum"].update(k3_rows)
+    del seen
+    torch.cuda.empty_cache()
+    train["cpu"] = phase_train_cpu(torch, dev)
+    log(f"[train] phases a-c in {time.perf_counter() - t0:.1f} s")
 
     # --- 6. LM serving at full width, one model after the other -------------
     import torch.nn.functional as F
@@ -1106,6 +1584,7 @@ def main(argv):
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"server": server, "card": smi}))
+    print(json.dumps({"train": train, "card": smi}))
     print(json.dumps({"llm": llm, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -763,9 +763,12 @@ class HeteroCache:
         self.policy.record(pg.ids)
         return pg.out
 
-    def gather(self, ids: np.ndarray) -> np.ndarray:
+    def gather(self, ids: np.ndarray) -> torch.Tensor:
         """Fetch feature rows for ``ids`` through the hierarchy (fused
-        split-phase gather)."""
+        split-phase gather).  Returns a ``(len(ids), D)`` tensor on the
+        cache's device, as ``complete_planned`` does (the reference returns
+        a device array); take it to the host with ``.cpu().numpy()`` where
+        numpy is needed."""
         return self.complete_planned(self.submit_planned(ids))
 
     # ------------------------------------------------------------------

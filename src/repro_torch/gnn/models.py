@@ -1,12 +1,14 @@
 """GraphSAGE [Hamilton+17] and GCN [Kipf&Welling16] on padded sampled blocks.
 
-PyTorch port of ``repro.gnn.models`` (forward and the serving step; the
-train step comes with the trainer).  Message passing gathers with the K2
-row-gather kernel (``h[src_pos]``) and aggregates with the K3 segment-sum
-kernel, which take a card's tensors to the CUDA kernels and a CPU's to
-their plain versions.  The dense products ``h @ W`` stay ``torch.matmul``,
-as the reference leaves them to XLA.  Parameters are a plain dict in the
-reference's pytree layout, weights ``(d_in, d_out)`` so that ``h @ w``.
+PyTorch port of ``repro.gnn.models``: the forward, the serving step and
+the train step.  Message passing gathers with the K2 row-gather kernel
+(``h[src_pos]``) and aggregates with the K3 segment-sum kernel, which take
+a card's tensors to the CUDA kernels and a CPU's to their plain versions.
+The train step is eager autograd: K3 is the gather's backward and K2 the
+segment sum's (see their wrappers).  The dense products ``h @ W`` stay
+``torch.matmul``, as the reference leaves them to XLA.  Parameters are a
+plain dict in the reference's pytree layout, weights ``(d_in, d_out)`` so
+that ``h @ w``.
 
 TF32 is off for float32 products and convolutions on the card (set here,
 for the whole process), so logits match the CPU and the reference within
@@ -22,6 +24,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.gather.ops import gather_rows
 from repro_torch.kernels.segment_agg.ops import segment_sum
+from repro_torch.train.optim import tree_map
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -125,4 +128,51 @@ def make_gnn_infer_step(model: str, batch_size: int):
         h = gnn_forward(params, feats, blocks, model)
         logits = h[:batch_size] @ params["head"]["w"] + params["head"]["b"]
         return logits.to(torch.float32)
+    return step
+
+
+def gnn_loss(params, feats, blocks, labels, batch_size: int, model: str):
+    """Mean cross-entropy of the seeds' float32 logits, and accuracy."""
+    h = gnn_forward(params, feats, blocks, model)
+    logits = h[:batch_size] @ params["head"]["w"] + params["head"]["b"]
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    loss = torch.mean(lse - gold)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+    return loss, acc
+
+
+def make_gnn_train_step(model: str, optimizer, batch_size: int,
+                        embedding_grads: bool = False):
+    """Training step: loss, gradients by autograd, one optimizer update.
+    ``step(state, feats, src, dst, emask, labels)`` returns ``(state',
+    {"loss", "acc"})`` with 0-d tensors; with ``embedding_grads=True`` it
+    also differentiates w.r.t. the INPUT features and returns dL/dfeats,
+    ``(N_pad, F)``, as a third output — the trainer's write path applies
+    it to the trainable embedding rows.  Only the seeds' logits enter the
+    loss, so the padding rows get zero gradients; every layer still runs
+    dense over all ``N_pad`` rows, as the reference's does."""
+    def step(state, feats, src, dst, emask, labels):
+        blocks = [(s, d, m) for s, d, m in zip(src, dst, emask)]
+        params = state["params"]
+        leaves = []
+
+        def leaf(t):
+            t = t.detach().requires_grad_(True)
+            leaves.append(t)
+            return t
+        with torch.enable_grad():
+            p = tree_map(leaf, params)
+            f = feats.detach().requires_grad_(embedding_grads)
+            loss, acc = gnn_loss(p, f, blocks, labels, batch_size, model)
+            grads = torch.autograd.grad(
+                loss, leaves + ([f] if embedding_grads else []))
+        it = iter(grads)
+        pgrads = tree_map(lambda _: next(it), params)
+        new_p, new_opt = optimizer.update(pgrads, state["opt"], params)
+        metrics = {"loss": loss.detach(), "acc": acc}
+        if embedding_grads:
+            return {"params": new_p, "opt": new_opt}, metrics, next(it)
+        return {"params": new_p, "opt": new_opt}, metrics
     return step

@@ -1,8 +1,9 @@
 """Wrapper for the row-gather kernel (K2): ``out[i] = table[idx[i]]``.
 
 On a CUDA tensor it launches ``csrc/gather.cu`` (a warp per pair of rows,
-a repeated row loaded once) and counts the launch in ``launches``; on a
-CPU tensor it runs the plain version (``ref.py``); anything else raises.
+a repeated row loaded once) and counts the launch in ``launches`` and, by
+use, in ``launches_by_use``; on a CPU tensor it runs the plain version
+(``ref.py``); anything else raises.
 Replaces ``repro.kernels.gather.ops.cache_gather``.
 
 An index outside ``[0, N)`` gives a row of zeros, on the card and on the
@@ -12,10 +13,17 @@ row and fills NaN from N up, and the model's ``h[src_pos]`` clamps to
 ``[0, N)``.  No path passes such an index (padded positions are 0, cache
 slots are valid); the zero row is what a segment sum's backward needs for
 a dropped id.
+
+``gather_rows`` carries a gradient on both devices: its backward sums
+``grad_out`` over ``idx`` into ``table.shape[0]`` rows with the segment-sum
+wrapper (K3 on the card), which drops an index outside ``[0, N)``, the
+adjoint of the zero row.  The Pallas kernel is forward-only; the
+reference differentiates ``h[src_pos]`` through XLA.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -23,6 +31,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.gather.ref import gather_rows_ref
 
 launches = 0    # kernel launches since the last reset (chip_smoke reads it)
+# ("forward" or "backward" (segment_sum's), table shape, number of
+# indices) -> launches
+launches_by_use: dict = {}
+_count_lock = threading.Lock()     # the io pool's threads gather too
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
@@ -47,10 +59,10 @@ def _check_forms(table: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError("gather_rows: table and idx must be contiguous")
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """table: (N, D) contiguous, any dtype; idx: (B,) int32 or int64 ->
-    (B, D), bit-exact, a zero row where idx is outside [0, N).  B = 0
-    gives (0, D)."""
+def _gather(table: torch.Tensor, idx: torch.Tensor,
+            backward: bool = False) -> torch.Tensor:
+    """The forward rule on either device; ``backward`` counts a launch
+    made for segment_sum's backward as such in ``launches_by_use``."""
     global launches
     if table.device.type == "cpu" and idx.device.type == "cpu":
         return gather_rows_ref(table, idx)
@@ -69,5 +81,34 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         out.data_ptr(), B, table.shape[0], D * table.element_size(),
         torch.cuda.current_stream(table.device).cuda_stream)
     build.check(lib, rc, "gather_rows")
-    launches += 1
+    use = ("backward" if backward else "forward", tuple(table.shape), B)
+    with _count_lock:
+        launches += 1
+        launches_by_use[use] = launches_by_use.get(use, 0) + 1
     return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows, ctx.dtype = table.shape[0], table.dtype
+        return _gather(table, idx)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        # imported here: the two wrapper modules are each other's backward
+        from repro_torch.kernels.segment_agg.ops import _segment_sum
+        (idx,) = ctx.saved_tensors
+        grad = _segment_sum(grad_out.contiguous(), idx, ctx.n_rows,
+                            backward=True)
+        return grad.to(ctx.dtype), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table: (N, D) contiguous, any dtype; idx: (B,) int32 or int64 ->
+    (B, D), bit-exact, a zero row where idx is outside [0, N).  B = 0
+    gives (0, D).  Differentiable in ``table`` (see the module note)."""
+    return _GatherRows.apply(table, idx)

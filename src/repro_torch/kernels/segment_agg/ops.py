@@ -1,8 +1,9 @@
 """Wrappers for the segment-sum kernel (K3) used by the GNN aggregators.
 
 On CUDA tensors ``segment_sum`` launches ``csrc/segment_agg.cu`` and counts
-the launch in ``launches`` and, by route, in ``route_launches``; on CPU
-tensors it runs the plain version (``ref.py``); anything else raises.
+the launch in ``launches``, by route in ``route_launches`` and by use in
+``launches_by_use``; on CPU tensors it runs the plain version (``ref.py``);
+anything else raises.
 ``segment_mean`` is two sums, as in ``repro.kernels.segment_agg.ops``.
 
 Routes (``pick_route``), one kernel each, chosen from the width alone:
@@ -13,10 +14,17 @@ Routes (``pick_route``), one kernel each, chosen from the width alone:
           at a 16-byte aligned ``msgs``: lanes own 16-byte column units,
           runs of equal ids summed in registers, one vector RED per run;
   scalar  any other width: the same with one element per unit.
+
+``segment_sum`` carries a gradient on both devices: its backward gathers
+``grad_out`` at ``seg_ids`` with the row-gather wrapper (K2 on the card),
+cast to ``msgs.dtype``; a dropped id gets K2's zero row.  The Pallas
+kernel is forward-only; the reference differentiates
+``jax.ops.segment_sum`` through XLA.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -26,6 +34,10 @@ from repro_torch.kernels.segment_agg.ref import segment_sum_ref
 ROUTES = ("edges", "vec", "scalar")
 launches = 0    # kernel launches since the last reset (chip_smoke reads it)
 route_launches = dict.fromkeys(ROUTES, 0)
+# ("forward" or "backward" (gather_rows'), msgs shape, number of ids)
+# -> launches
+launches_by_use: dict = {}
+_count_lock = threading.Lock()     # calls come from several threads
 
 _SM_WARPS = 132 * 32        # warps the rows routes aim to have work for
 
@@ -68,11 +80,10 @@ def rows_tiling(route: str, dtype: torch.dtype, E: int, D: int):
     return q, min(64, max(2, chunk))
 
 
-def segment_sum(msgs: torch.Tensor, seg_ids: torch.Tensor,
-                n_segments: int) -> torch.Tensor:
-    """msgs: (E, D) f32 or bf16; seg_ids: (E,) int32 or int64, any order;
-    ids outside [0, n_segments) are dropped.  Returns (n_segments, D) f32
-    sums (atomics: equal to a sequential sum within f32 rounding)."""
+def _segment_sum(msgs: torch.Tensor, seg_ids: torch.Tensor,
+                 n_segments: int, backward: bool = False) -> torch.Tensor:
+    """The forward rule on either device; ``backward`` counts a launch
+    made for gather_rows' backward as such in ``launches_by_use``."""
     global launches
     if msgs.device.type == "cpu" and seg_ids.device.type == "cpu":
         return segment_sum_ref(msgs, seg_ids, n_segments)
@@ -106,9 +117,39 @@ def segment_sum(msgs: torch.Tensor, seg_ids: torch.Tensor,
         ROUTES.index(route), q, chunk,
         torch.cuda.current_stream(msgs.device).cuda_stream)
     build.check(lib, rc, "segment_sum")
-    launches += 1
-    route_launches[route] += 1
+    use = ("backward" if backward else "forward", (E, D), E)
+    with _count_lock:
+        launches += 1
+        route_launches[route] += 1
+        launches_by_use[use] = launches_by_use.get(use, 0) + 1
     return out
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msgs, seg_ids, n_segments):
+        ctx.save_for_backward(seg_ids)
+        ctx.dtype = msgs.dtype
+        return _segment_sum(msgs, seg_ids, n_segments)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        # imported here: the two wrapper modules are each other's backward
+        from repro_torch.kernels.gather.ops import _gather
+        (seg_ids,) = ctx.saved_tensors
+        grad = _gather(grad_out.contiguous(), seg_ids, backward=True)
+        return grad.to(ctx.dtype), None, None
+
+
+def segment_sum(msgs: torch.Tensor, seg_ids: torch.Tensor,
+                n_segments: int) -> torch.Tensor:
+    """msgs: (E, D) f32 or bf16; seg_ids: (E,) int32 or int64, any order;
+    ids outside [0, n_segments) are dropped.  Returns (n_segments, D) f32
+    sums (atomics: equal to a sequential sum within f32 rounding).
+    Differentiable in ``msgs`` (see the module note)."""
+    return _SegmentSum.apply(msgs, seg_ids, n_segments)
 
 
 def segment_mean(msgs: torch.Tensor, seg_ids: torch.Tensor,

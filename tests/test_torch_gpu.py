@@ -38,6 +38,13 @@ def _cuda():
     return torch.device("cuda")
 
 
+def _backward_launches(ops) -> int:
+    """Launches a K2 or K3 wrapper module counted for the other's
+    backward."""
+    return sum(n for use, n in ops.launches_by_use.items()
+               if use[0] == "backward")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_gather_matches_plain(dtype):
     dev = _cuda()
@@ -594,3 +601,96 @@ def test_gpu_lm_serving_matches_cpu(name):
         nxt = torch.argmax(lb, -1)[:, None]
         (la, ca), (lb, cb) = dec(card, ca, nxt.to(dev), 24 + i), \
             dec(cpu, cb, nxt, 24 + i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_backward_rules_launch_kernels_and_match_plain(dtype):
+    """The model's chain gather -> mask -> segment sum on the card, with
+    padded (id 0) and out-of-range ids: the gradients of the table and
+    the mask through the kernels' backward rules (K3 for the gather, K2
+    for the segment sum) against the plain versions' own autograd on the
+    same card tensors, within 1e-5 (float32) or 1e-2 (bfloat16) of the
+    largest gradient; each backward launches its kernel once."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(3)
+    n, d, e, s = 5000, 256 if dtype == torch.float32 else 64, 40000, 3000
+    table = torch.randn(n, d, generator=g).to(dtype)
+    idx = torch.randint(0, n, (e,), generator=g)
+    idx[e // 2:] = 0
+    idx[::97] = n + 2
+    dst = torch.randint(0, s, (e,), generator=g)
+    dst[e // 2:] = 0
+    dst[::89] = -1
+    w = torch.rand(e, generator=g)
+    w[e // 2:] = 0
+    cot = torch.randn(s, d, generator=g)
+
+    def run(gather, ssum):
+        t = table.to(dev).requires_grad_(True)
+        wt = w.to(dev).to(dtype).requires_grad_(True)
+        out = ssum(gather(t, idx.to(dev)) * wt[:, None], dst.to(dev), s)
+        out.backward(cot.to(dev))
+        torch.cuda.synchronize()
+        return t.grad.float().cpu(), wt.grad.float().cpu()
+    before = (_backward_launches(gather_ops), _backward_launches(seg_ops))
+    uses = (("backward", (s, d), e), ("backward", (e, d), e))
+    by_use = [m.launches_by_use.get(u, 0)
+              for m, u in zip((gather_ops, seg_ops), uses)]
+    got = run(gather_ops.gather_rows, seg_ops.segment_sum)
+    assert (_backward_launches(gather_ops) - before[0],
+            _backward_launches(seg_ops) - before[1]) == (1, 1)
+    # counted by use where they launch: K2 gathers the (s, d) gradient at
+    # the e ids, K3 sums the (e, d) gradient
+    assert [m.launches_by_use.get(u, 0) - n for m, u, n in zip(
+        (gather_ops, seg_ops), uses, by_use)] == [1, 1]
+    want = run(gather_rows_ref, segment_sum_ref)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(mode="helios", prefetch_depth=1),
+    dict(mode="helios-nopipe", train_embeddings=True,
+         embedding_momentum=0.9, embedding_adam=0.99)])
+def test_gpu_trainer_matches_cpu(tmp_path, kw):
+    """The trainer on the card (K1, K2/K3 forward and backward) against
+    itself on the CPU (plain versions), 6 batches: the same sampled
+    batches, identical cache, IO (and write-back) stats and virtual_s;
+    losses within 1e-4 relative and the final parameters within 1e-4
+    (K3's atomics and cuBLAS sum in other orders, carried by AdamW)."""
+    from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
+    from repro_torch.train.optim import tree_leaves
+    dev = _cuda()
+    g = synth_graph(4000, 8, seed=0)
+    runs = []
+    for where in (dev, "cpu"):
+        store = FeatureStore(str(tmp_path / f"f_{where}"), 4000, 64,
+                             n_shards=4, create=True, rng_seed=2,
+                             writable=True)
+        cfg = TrainerConfig(batch_size=64, fanouts=(5, 3), hidden=32,
+                            presample_batches=2, chaos=None,
+                            device=str(where), **kw)
+        with OutOfCoreGNNTrainer(g, store, cfg) as tr:
+            nodes, sample = [], tr.sampler.sample
+            tr.sampler.sample = lambda s: nodes.append(sample(s)) or nodes[-1]
+            before = (lookup_ops.launches, _backward_launches(gather_ops),
+                      _backward_launches(seg_ops))
+            out = tr.train(6)
+            launched = (lookup_ops.launches - before[0],
+                        _backward_launches(gather_ops) - before[1],
+                        _backward_launches(seg_ops) - before[2])
+            runs.append((out, nodes, [m["loss"] for m in tr.metrics_log],
+                         [t.cpu() for t in tree_leaves(tr.state["params"])],
+                         launched))
+    (a, na, la, pa, ka), (b, nb, lb, pb, kb) = runs
+    # K1 once per batch, and once per optimizer-table gather
+    assert ka[0] >= 6 and min(ka) > 0 and kb == (0, 0, 0)
+    for x, y in zip(na, nb):
+        np.testing.assert_array_equal(x.nodes, y.nodes)
+    for key in ("cache", "io", "virtual_s") + (
+            ("writeback",) if "train_embeddings" in kw else ()):
+        assert a[key] == b[key], key
+    np.testing.assert_allclose(la, lb, rtol=1e-4)
+    for x, y in zip(pa, pb):
+        assert (x - y).abs().max() <= 1e-4

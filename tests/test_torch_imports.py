@@ -15,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "examples", "train_gnn_outofcore_torch.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -48,6 +49,7 @@ def _bad_imports(path):
 def test_port_sources_exist():
     srcs = _sources()
     assert os.path.exists(srcs[0]), "chip_smoke.py is missing"
+    assert os.path.exists(srcs[1]), "the port's trainer example is missing"
     assert len(srcs) > 20
 
 
@@ -89,6 +91,41 @@ def test_default_device_raises_without_a_card(tmp_path):
         HeteroCache(store, np.zeros(256), 8, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_gnn_params(torch.Generator(), "sage", 8, 4, 3)
+
+
+def test_trainer_config_defaults_to_the_card():
+    from repro_torch.gnn.train import TrainerConfig
+    assert TrainerConfig().device == "cuda"
+
+
+def test_trainer_raises_without_a_card(tmp_path):
+    """The trainer, its example and a checkpoint restore to the card all
+    refuse to run quietly on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib.util
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core.iostack import FeatureStore
+    from repro_torch.gnn.graph import synth_graph
+    from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
+    store = FeatureStore(str(tmp_path / "f"), n_rows=256, row_dim=8,
+                         n_shards=2, create=True, rng_seed=0)
+    g = synth_graph(256, 4, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OutOfCoreGNNTrainer(g, store, TrainerConfig(batch_size=8,
+                                                    fanouts=(2, 2),
+                                                    chaos=None))
+    spec = importlib.util.spec_from_file_location(
+        "train_gnn_outofcore_torch",
+        os.path.join(ROOT, "examples", "train_gnn_outofcore_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(["--steps", "1", "--vertices", "1024", "--dim", "8"])
+    ck = CheckpointManager(str(tmp_path / "ck"), async_write=False)
+    ck.save(1, {"w": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ck.restore(device="cuda")
 
 
 def test_lm_entry_points_default_to_the_card():

@@ -439,3 +439,122 @@ def test_cpu_path_counts_no_launch():
                  np.zeros((0, 2), np.float32))
     assert (gather_ops.launches, seg_ops.launches,
             lookup_ops.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# backward rules: K3 is the gather's backward, K2 the segment sum's
+# ---------------------------------------------------------------------------
+
+def _seg_ids(rng, e, n_seg, pattern):
+    """Segment ids as the model feeds them: ``padded`` is a hop's dst_pos
+    (real ids, then padded edges at id 0); ``out_of_range`` adds ids at
+    and above n_seg and below 0, which the forward drops."""
+    ids = rng.integers(0, n_seg, e)
+    ids[e * 2 // 3:] = 0
+    if pattern == "out_of_range":
+        ids[rng.integers(0, e, 7)] = n_seg + rng.integers(0, 4, 7)
+        ids[rng.integers(0, e, 5)] = -1 - rng.integers(0, 3, 5)
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("pattern", ["padded", "out_of_range"])
+@pytest.mark.parametrize("e,d,s", [(120, 16, 24), (600, 1, 50), (37, 33, 9)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_sum_backward_matches_jax_grad(dtype, e, d, s, pattern):
+    """dL/dmsgs of the port's segment_sum (grad_out gathered at the ids,
+    a zero row where an id is dropped) against ``jax.vjp`` of the
+    reference's ``segment_sum_ref`` (which drops ids >= n_seg and leaves
+    negative ones to ``jax.ops.segment_sum``, which drops them too), for
+    the same cotangent.  The backward is a gather: exact, no tolerance."""
+    import jax
+    from repro.kernels.segment_agg.ref import segment_sum_ref
+    rng = np.random.default_rng(e + d + s)
+    msgs = _bf16_exact(rng.normal(size=(e, d)).astype(np.float32))
+    ids = _seg_ids(rng, e, s, pattern)
+    g = rng.normal(size=(s, d)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    _, vjp = jax.vjp(lambda m: segment_sum_ref(m, jnp.asarray(ids), s),
+                     jnp.asarray(msgs, jdt))
+    (want,) = vjp(jnp.asarray(g))
+    m = torch.from_numpy(msgs).to(tdt).requires_grad_(True)
+    seg_ops.segment_sum(m, torch.from_numpy(ids), s).backward(
+        torch.from_numpy(g))
+    assert m.grad.dtype == tdt and m.grad.shape == (e, d)
+    np.testing.assert_array_equal(m.grad.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("pattern", ["padded", "out_of_range"])
+@pytest.mark.parametrize("n,d,b", [(40, 16, 300), (9, 3, 64), (200, 1, 50)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_backward_matches_jax_grad(dtype, n, d, b, pattern):
+    """dL/dtable of the port's gather_rows (grad_out summed over the
+    indices, an index outside [0, N) dropped) against ``jax.vjp`` of the
+    model's ``h[src_pos]`` for in-range (padded) indices, and of
+    ``jnp.take(..., mode="fill")`` where indices fall outside the table
+    (negative ones mapped to N first: JAX wraps them, the port gives a
+    zero row).  The sums run in another order: within 1e-5 in float32.
+    In bfloat16 XLA's scatter-add rounds to bf16 at every add, while the
+    port sums in float32 and rounds once, so there the port is held to
+    the float32 vjp of the same bf16 values, within one rounding (2**-8
+    relative)."""
+    import jax
+    rng = np.random.default_rng(n + d + b)
+    table = _bf16_exact(rng.normal(size=(n, d)).astype(np.float32))
+    idx = _seg_ids(rng, b, n, pattern)
+    g = _bf16_exact(rng.normal(size=(b, d)).astype(np.float32))
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    if pattern == "padded":
+        def fwd(h):
+            return h[jnp.asarray(idx)]
+    else:
+        safe = jnp.asarray(np.where(idx < 0, n, idx))
+
+        def fwd(h):
+            return jnp.take(h, safe, axis=0, mode="fill", fill_value=0)
+    _, vjp = jax.vjp(fwd, jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(g))
+    want = np.asarray(want)
+    t = torch.from_numpy(table).to(tdt).requires_grad_(True)
+    gather_ops.gather_rows(t, torch.from_numpy(idx)).backward(
+        torch.from_numpy(g).to(tdt))
+    assert t.grad.dtype == tdt and t.grad.shape == (n, d)
+    rtol = 1e-5 if dtype == "float32" else 2.0 ** -8
+    np.testing.assert_allclose(t.grad.float().numpy(), want, rtol=rtol,
+                               atol=1e-5)
+
+
+def test_backward_rules_chain_and_skip_what_needs_no_gradient():
+    """The model's chain on the CPU, gather -> mask -> segment sum: the
+    table's gradient is the plain versions' own autograd (index_add_ /
+    fancy indexing); a table that needs no gradient gets none, while the
+    mask weight still does; the CPU counts no launch, forward or
+    backward."""
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(30, 8)).astype(np.float32))
+    idx = torch.from_numpy(_seg_ids(rng, 90, 30, "padded"))
+    dst = torch.from_numpy(_seg_ids(rng, 90, 12, "out_of_range"))
+    w = torch.from_numpy(rng.random(90).astype(np.float32))
+    before = (gather_ops.launches, seg_ops.launches,
+              dict(gather_ops.launches_by_use), dict(seg_ops.launches_by_use))
+
+    def loss(gather, ssum, t, wt):
+        return (ssum(gather(t, idx) * wt[:, None], dst, 12) ** 2).sum()
+    t1, w1 = table.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    loss(gather_ops.gather_rows, seg_ops.segment_sum, t1, w1).backward()
+    t2, w2 = table.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    from repro_torch.kernels.gather.ref import gather_rows_ref
+    from repro_torch.kernels.segment_agg.ref import segment_sum_ref
+    loss(gather_rows_ref, segment_sum_ref, t2, w2).backward()
+    np.testing.assert_allclose(t1.grad.numpy(), t2.grad.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(w1.grad.numpy(), w2.grad.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    w3 = w.clone().requires_grad_(True)
+    loss(gather_ops.gather_rows, seg_ops.segment_sum, table, w3).backward()
+    assert table.grad is None
+    np.testing.assert_allclose(w3.grad.numpy(), w2.grad.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert (gather_ops.launches, seg_ops.launches,
+            gather_ops.launches_by_use, seg_ops.launches_by_use) == before

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one card: GNN inference serving (K1-K3),
+scale-out (a remote-tier cache, a dead peer, a serving fleet; K1-K3),
 out-of-core GNN training (K1, K2/K3 forward and backward) and LM
 serving, prefill then greedy decode (K4, K5).
 
@@ -62,6 +63,36 @@ failure raises and the script exits non-zero:
   5. cpu     — a fresh server on the CPU (plain versions, same
                parameters) serves the same requests: same answered/shed
                split, logits within 1e-4;
+  5a. scale_out — the store's rows copied in chunks into a 4-worker
+               PartitionedFeatureStore (hash ownership, 4 shards each)
+               under build/smoke_scale_out/, removed at the end:
+               a. a cache on the card over RemoteIOEngine(me=0) at the
+               server's 5%/10% tiers and phase 3's presampled hotness
+               replays phase 3's micro-batch node sets, then phase 4's
+               training-shaped batch, under the tracer and the profiler
+               with the launch counters zeroed (wall ms per gather by the
+               cache.gather.* spans, busy share): K1 must launch once per
+               gather and list remote misses; every row equals a
+               single-store card cache's (its replay timed beside) and
+               store.read_rows; a CPU cache over the same partitioned
+               store (its own engine) gives the same rows, CacheStats
+               (wall time aside) and engine row counters;
+               b. worker 1 killed (FailureInjector on a Coordinator) at
+               the third gather of the same trace, every gather submitted
+               before any completes: identical rows, rows rerouted, every
+               ticket completed once (a CompletionQueue counts them);
+               c. a 3-replica ServingFleet on the card over a writable
+               copy of the store serves the 64 requests, owner-writes new
+               values to the 1,024 rows that round read most, settles
+               every replica (a second settle must refresh nothing) and
+               serves them again (each round traced and profiled, K1-K3
+               launched in each); every replica and the store return the
+               new rows; a CPU fleet with the card's parameters over its
+               own copy routes, answers and sheds alike, invalidates as
+               many rows, logits within 1e-4;
+               d. K1 on the remote-tier cache's first gather, bit-exact
+               against its plain version, timed as in phase 4 beside its
+               bound and a PCIe probe (the ``remote_tier`` row under K1);
   5b. train  — a. OutOfCoreGNNTrainer at its defaults (helios, sage,
                hidden 256, batch 1024, fanouts (25, 10), 5%/10% cache) on
                the same store, read-only: 2 warm-up batches, then 8
@@ -113,9 +144,9 @@ failure raises and the script exits non-zero:
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (K1-K5), one ``{"server": ...}`` line, one ``{"train": ...}`` line, one
-``{"llm": ...}`` line, and as the last line ``{"ok": true, "device":
-{...}}``.  With ``--gnn-kernels
-DIR`` it imports the port from DIR (another checkout's ``src``, to time
+``{"llm": ...}`` line, one ``{"scale_out": ...}`` line, and as the last
+line ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels DIR`` it
+imports the port from DIR (another checkout's ``src``, to time
 two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
 and prints the card, a ``{"gnn_kernels_of": DIR, "kernels": [...]}`` line
 and the last line.  Without a CUDA device, or outside a checkout of the
@@ -151,6 +182,10 @@ TRAIN_BATCH, TRAIN_FANOUTS = 1024, (25, 10)     # the trainer's defaults
 TRAIN_ROW_DIM, TRAIN_HIDDEN = 1024, 256     # IG rows; the trainer's hidden
 TRAIN_N_PAD = TRAIN_BATCH * (1 + 25 + 25 * 10)      # 282,624 rows per batch
 TRAIN_WARM, TRAIN_COUNTED = 2, 8
+SCALE_WORKERS, SCALE_SHARDS = 4, 4
+SCALE_KILL = {2: 1}     # FailureInjector: at gather 2 (0-based) kill worker 1
+FLEET_REPLICAS, FLEET_WRITE_ROWS = 3, 1024
+SCALE_ROOT = os.path.join(ROOT, "build", "smoke_scale_out")
 TRAIN_SMALL = dict(vertices=20_000, row_dim=128, batches=3,
                    mode="helios-nopipe", batch_size=256, fanouts=(10, 5),
                    hidden=64, train_embeddings=True, embedding_momentum=0.9,
@@ -412,7 +447,7 @@ def training_rows(torch, dev, g, cache, g_ops, s_ops, l_ops, l_ref):
     torch.cuda.empty_cache()
     k3c = k3_entry(torch, s_ops, w[:, None].contiguous(), dst, n_pad,
                    label + ", counts")
-    return k1, k3, k3c
+    return k1, k3, k3c, nodes
 
 
 def phase_edges(torch, dev, ops, refs):
@@ -1290,6 +1325,379 @@ def phase_train_cpu(torch, dev):
     return report
 
 
+def sync(dev):
+    if dev.type == "cuda":
+        import torch
+        torch.cuda.synchronize()
+
+
+def busy(dev, fn):
+    """``fn()`` under the profiler: its result, wall seconds (to a
+    synchronise) and the device milliseconds the profiler recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    return out, wall, device_ms(prof)
+
+
+def span_ms(tr, prefix: str, n: int) -> dict:
+    """Wall ms per unit (``n`` units) of each traced span under
+    ``prefix``."""
+    out = {}
+    for sp in tr.spans:
+        if sp.name.startswith(prefix):
+            key = sp.name[len(prefix):]
+            out[key] = out.get(key, 0.0) + sp.wall_s * 1e3 / n
+    return out
+
+
+def partitioned_copy(store, root):
+    """The store's own rows, copied in chunks into a PartitionedFeatureStore
+    of SCALE_WORKERS hash-owned workers (SCALE_SHARDS shards each), then
+    reopened read-only: content bit-identical to the single store."""
+    import numpy as np
+    from repro_torch.distributed.partition import (PartitionedFeatureStore,
+                                                   make_partition)
+    part = make_partition("hash", store.n_rows, SCALE_WORKERS)
+    kw = dict(dtype=store.dtype, n_shards=SCALE_SHARDS)
+    ps = PartitionedFeatureStore(root, store.n_rows, store.row_dim, part,
+                                 create=True, writable=True, **kw)
+    for w, rows in enumerate(ps.worker_rows):
+        for i in range(0, len(rows), 1 << 15):
+            j = min(len(rows), i + (1 << 15))
+            ps.stores[w].write_rows(np.arange(i, j),
+                                    store.read_rows(rows[i:j]), dedupe=False)
+    ps.flush()
+    return PartitionedFeatureStore(root, store.n_rows, store.row_dim, part,
+                                   **kw)
+
+
+def remote_tier(torch, dev, store, pstore, scores, trace_ids, ops, refs):
+    """Part a (and d): a cache on the card over RemoteIOEngine(me=0) replays
+    the trace under the tracer and the profiler; a single-store card cache
+    and a CPU cache over the same partitioned store (its own engine) replay
+    it too.  Then K1 timed on the first gather's ids against this cache's
+    tables."""
+    from repro_torch.core.hetero_cache import HeteroCache, tier_rows
+    from repro_torch.core.iostack import make_engine
+    from repro_torch.distributed.remote_engine import RemoteIOEngine
+    from repro_torch.obs import trace
+    g_ops, s_ops, l_ops = ops
+    g_ref, _, l_ref = refs
+    dev_rows, host_rows = tier_rows("helios", store.n_rows,
+                                    CFG["device_cache_frac"],
+                                    CFG["host_cache_frac"])
+    engines = [RemoteIOEngine(pstore, me=0, chaos=None) for _ in range(2)]
+    engines.append(make_engine("helios", store, chaos=None))
+    caches = [HeteroCache(pstore, scores, dev_rows, host_rows, engines[0],
+                          device=dev),
+              HeteroCache(pstore, scores, dev_rows, host_rows, engines[1],
+                          device="cpu"),
+              HeteroCache(store, scores, dev_rows, host_rows, engines[2],
+                          device=dev)]
+    card, cpu, single = caches
+    try:
+        if (card._base_loc == 3).sum() == 0:
+            raise AssertionError("no row sits at base tier 3")
+        listed = []
+
+        def replay():
+            out = []
+            for ids in trace_ids:
+                pg = card.submit_planned(ids)
+                listed.append(len(pg.plan[3][0]))  # K1's counts[1]
+                out.append(card.complete_planned(pg))
+            return out
+        for m in ops:
+            m.launches = 0
+        tr = trace.install()
+        rows, wall, dev_ms = busy(dev, replay)
+        trace.uninstall()
+        # K2 runs here only where a gather holds repeated missed ids, K3
+        # not at all: the fleet (part c) runs the model
+        launches = {"K1": l_ops.launches, "K2": g_ops.launches,
+                    "K3": s_ops.launches}
+        if launches["K1"] != len(trace_ids) or not sum(listed):
+            raise AssertionError(f"K1 launched {launches['K1']} times for "
+                                 f"{len(trace_ids)} gathers, remote lists "
+                                 f"{listed}")
+        # the same trace through the single store's striped engine, timed
+        # alike (no profiler) to set the remote engine's time beside it
+        t0 = time.perf_counter()
+        single_rows = [single.gather(ids) for ids in trace_ids]
+        sync(dev)
+        single_wall = time.perf_counter() - t0
+        for ids, got, one in zip(trace_ids, rows, single_rows):
+            want = torch.from_numpy(store.read_rows(ids))
+            if not (torch.equal(got.cpu(), want) and torch.equal(got, one)
+                    and torch.equal(cpu.gather(ids), want)):
+                raise AssertionError("a remote-tier gather differs from the "
+                                     "single store or the CPU")
+        st, st_cpu = card.stats()._values(), cpu.stats()._values()
+        st.pop("wall_s"), st_cpu.pop("wall_s")
+        if st != st_cpu:
+            raise AssertionError(f"remote-tier CacheStats differ from the "
+                                 f"CPU's: {st} / {st_cpu}")
+        counters = [(e.local_rows, e.remote_rows, e.rerouted_rows)
+                    for e in engines[:2]]
+        if counters[0] != counters[1] or counters[0][2]:
+            raise AssertionError(f"engine counters differ: {counters}")
+        if not st["remote_hits"] or not st["virtual_remote_s"]:
+            raise AssertionError("the remote tier served no row")
+        out = {"gathers": len(trace_ids),
+               "ids_per_gather": [len(i) for i in trace_ids],
+               "wall_ms_per_gather": wall * 1e3 / len(trace_ids),
+               "traced_ms_per_gather": span_ms(tr, "cache.gather.",
+                                               len(trace_ids)),
+               "device_busy_share": dev_ms / (wall * 1e3) if dev_ms
+               else None,
+               "single_store_wall_ms_per_gather":
+                   single_wall * 1e3 / len(trace_ids),
+               "k1_remote_listed": listed,
+               "launches": launches,
+               "local_rows": counters[0][0], "remote_rows": counters[0][1],
+               **{k: st[k] for k in ("device_hits", "host_hits",
+                                     "storage_misses", "remote_hits",
+                                     "virtual_storage_s",
+                                     "virtual_remote_s")}}
+        # part d: K1 on the first gather's ids against this cache's tables
+        with card._table_lock:
+            ids = trace_ids[0]
+            tiers = card.loc[ids]
+            lk_args = (torch.from_numpy(ids.astype("int32")).to(dev),
+                       card._loc_dev, card._slot_dev)
+            dt, ht = card.device_tier, card.host_tier
+        k1 = k1_entry(torch, g_ops, l_ops, l_ref, lk_args, dt, ht, tiers,
+                      f"remote tier (me=0 of {SCALE_WORKERS}), first "
+                      f"micro-batch's ids")
+        k1.update(launches=launches["K1"], max_abs_err=0.0,
+                  remote_misses=listed[0],
+                  remote_rows=int((tiers == 3).sum()))
+        return out, k1
+    finally:
+        for c in caches:
+            c.close()
+        for e in engines:
+            e.close()
+
+
+def dead_peer(torch, dev, store, pstore, scores, trace_ids):
+    """Part b: worker 1 dies at the third gather (a FailureInjector on a
+    Coordinator) while the earlier gathers' tickets are in flight: every
+    gather is submitted before any completes; each ticket is counted
+    through a CompletionQueue."""
+    from repro_torch.core.hetero_cache import HeteroCache, tier_rows
+    from repro_torch.core.iostack import CompletionQueue
+    from repro_torch.distributed.remote_engine import RemoteIOEngine
+    from repro_torch.ft.failures import Coordinator, FailureInjector
+    dev_rows, host_rows = tier_rows("helios", store.n_rows,
+                                    CFG["device_cache_frac"],
+                                    CFG["host_cache_frac"])
+    coord = Coordinator(n_workers=SCALE_WORKERS)
+    inj = FailureInjector(kill_at=SCALE_KILL)
+    eng = RemoteIOEngine(pstore, me=0, coordinator=coord, chaos=None)
+    cache = HeteroCache(pstore, scores, dev_rows, host_rows, eng,
+                        device=dev)
+    cq, tickets, submit = CompletionQueue(), [], eng.submit
+
+    def submit_cq(*a, **kw):
+        tickets.append(submit(*a, cq=cq, **kw))
+        return tickets[-1]
+    eng.submit = submit_cq
+    try:
+        pending = []
+        for step, ids in enumerate(trace_ids):
+            inj.apply(step, coord.workers)
+            pending.append(cache.submit_planned(ids))
+        rows = [cache.complete_planned(pg) for pg in pending]
+        done = cq.drain()
+        if len(done) != len(tickets) or \
+                {id(t) for t in done} != {id(t) for t in tickets}:
+            raise AssertionError(f"{len(done)} completions for "
+                                 f"{len(tickets)} tickets")
+        for ids, got in zip(trace_ids, rows):
+            if not torch.equal(got.cpu(),
+                               torch.from_numpy(store.read_rows(ids))):
+                raise AssertionError("a gather differs after the peer died")
+        if eng.peer_alive(1) or not eng.rerouted_rows:
+            raise AssertionError("no row was rerouted around the dead peer")
+        return {"killed": {str(k): v for k, v in SCALE_KILL.items()},
+                "tickets": len(tickets), "completions": len(done),
+                "rerouted_rows": eng.rerouted_rows,
+                "rerouted_batches": eng.rerouted_batches,
+                "remote_rows": eng.remote_rows, "local_rows": eng.local_rows}
+    finally:
+        cache.close()
+        eng.close()
+
+
+def fleet_run(torch, dev, g, store, wl, params, hot=None, new=None):
+    """Part c on one device: a ServingFleet of FLEET_REPLICAS over a
+    writable store serves ``wl``, takes owner-writes of ``new`` at ``hot``
+    (the FLEET_WRITE_ROWS rows the first round read most, when ``hot`` is
+    None), settles every replica and serves ``wl`` again.  Each round runs
+    under the tracer and the profiler with the launch counters zeroed."""
+    import numpy as np
+    from repro_torch.distributed.fleet import ServingFleet
+    from repro_torch.kernels.cache_lookup import ops as l_ops
+    from repro_torch.kernels.gather import ops as g_ops
+    from repro_torch.kernels.segment_agg import ops as s_ops
+    from repro_torch.obs import trace
+    from repro_torch.serving import ServerConfig
+    cfg = ServerConfig(device=str(dev), **CFG)
+    read = []
+    with ServingFleet(g, store, n_replicas=FLEET_REPLICAS, cfg=cfg,
+                      params=params) as fleet:
+        for rep in fleet.replicas:
+            if rep.params is not fleet.params or \
+                    rep.cache.device_tier.device != dev:
+                raise AssertionError("a replica holds other tensors")
+            submit = rep.cache.submit_planned
+
+            def rec(ids, n_rows=None, submit=submit):
+                read.append(ids)
+                return submit(ids, n_rows)
+            rep.cache.submit_planned = rec
+        rounds = []
+        for rnd in range(2):
+            for m in (g_ops, s_ops, l_ops):
+                m.launches = 0
+            b0 = sum(r.stats.batches for r in fleet.replicas)
+            tr = trace.install()
+
+            def serve_round():
+                futs = [fleet.submit(s, k) for s, _, k in wl]
+                fleet.flush()
+                return [(i, f.result()) for f, i in futs]
+            res, wall, dev_ms = busy(dev, serve_round)
+            trace.uninstall()
+            batches = sum(r.stats.batches for r in fleet.replicas) - b0
+            rounds.append({
+                "results": res, "batches": batches,
+                "served": sum(r is not None for _, r in res),
+                "shed": sum(r is None for _, r in res),
+                "wall_ms_per_batch": wall * 1e3 / batches,
+                "traced_ms_per_batch": span_ms(tr, "serve.", batches),
+                "device_busy_share": (dev_ms / (wall * 1e3)
+                                      if dev_ms else None),
+                "launches": {"K1": l_ops.launches, "K2": g_ops.launches,
+                             "K3": s_ops.launches}})
+            if rnd:
+                break
+            if hot is None:
+                count = np.bincount(np.concatenate(read),
+                                    minlength=store.n_rows)
+                hot = np.argsort(-count, kind="stable")[:FLEET_WRITE_ROWS]
+                new = np.random.default_rng(7).standard_normal(
+                    (len(hot), store.row_dim)).astype(store.dtype)
+            fleet.write_embeddings(hot, new)
+            settled = [fleet._settle_invalidations(i)
+                       for i in range(FLEET_REPLICAS)]
+            again = [fleet._settle_invalidations(i)
+                     for i in range(FLEET_REPLICAS)]
+            if sum(again):
+                raise AssertionError(f"a second settle refreshed {again}")
+        for rep in fleet.replicas:
+            if not torch.equal(rep.cache.gather(hot).cpu(),
+                               torch.from_numpy(new)):
+                raise AssertionError("a replica serves a stale written row")
+        if not np.array_equal(store.read_rows(hot), new):
+            raise AssertionError("the written rows did not reach the store")
+        return {"rounds": rounds, "route_counts":
+                fleet.router.route_counts.tolist(),
+                "invalidated_rows": fleet.invalidated_rows,
+                "settled_per_replica": settled, "hot": hot, "new": new,
+                "params": fleet.params}
+
+
+def fleet_phase(torch, dev, g, store, wl, root):
+    """Part c: the fleet on the card, then on the CPU with the card's
+    parameters, each over its own writable copy of the store."""
+    from repro_torch.core.iostack import FeatureStore
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        path = os.path.join(root, f"fleet_{where.type}")
+        shutil.copytree(store.path, path)
+        wstore = FeatureStore(path, store.n_rows, store.row_dim,
+                              dtype=store.dtype, n_shards=store.n_shards,
+                              writable=True)
+        params = None
+        if runs:
+            params = {"layers": [{k: v.cpu() for k, v in lp.items()}
+                                 for lp in runs[0]["params"]["layers"]],
+                      "head": {k: v.cpu() for k, v in
+                               runs[0]["params"]["head"].items()}}
+        runs.append(fleet_run(torch, where, g, wstore, wl, params,
+                              *((runs[0]["hot"], runs[0]["new"]) if runs
+                                else ())))
+        del wstore
+        shutil.rmtree(path)
+    card, cpu = runs
+    for r in card["rounds"]:
+        if min(r["launches"].values()) < 1:
+            raise AssertionError(f"a kernel of the path never ran in a "
+                                 f"fleet round: {r['launches']}")
+    if card["route_counts"] != cpu["route_counts"] or \
+            card["invalidated_rows"] != cpu["invalidated_rows"] or \
+            not card["invalidated_rows"]:
+        raise AssertionError(
+            f"fleets differ: routes {card['route_counts']} / "
+            f"{cpu['route_counts']}, invalidated "
+            f"{card['invalidated_rows']} / {cpu['invalidated_rows']}")
+    err = 0.0
+    for ra, rb in zip(card["rounds"], cpu["rounds"]):
+        for (i, a), (j, b) in zip(ra["results"], rb["results"]):
+            if i != j or (a is None) != (b is None):
+                raise AssertionError("the CPU fleet routed, answered or "
+                                     "shed another request")
+            if a is None:
+                continue
+            if a["latency_v"] != b["latency_v"]:
+                raise AssertionError("virtual latency differs from the CPU")
+            d = abs(a["logits"] - b["logits"])
+            err = max(err, float(d.max()))
+            if not (d <= 1e-4 + 1e-4 * abs(b["logits"])).all():
+                raise AssertionError(f"fleet logits differ from the CPU "
+                                     f"by {err}")
+    for r in card["rounds"]:
+        del r["results"]
+    return {"replicas": FLEET_REPLICAS, "rounds": card["rounds"],
+            "route_counts": card["route_counts"],
+            "invalidated_rows": card["invalidated_rows"],
+            "settled_per_replica": card["settled_per_replica"],
+            "written_rows": len(card["hot"]),
+            "cpu_max_abs_logit_err": err}
+
+
+def phase_scale_out(torch, dev, g, store, scores, trace_ids, wl, ops,
+                    refs):
+    """The scale-out phase (parts a-d; see the module docstring).  Returns
+    the ``scale_out`` line's object and K1's ``remote_tier`` entry."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SCALE_ROOT, ignore_errors=True)
+    try:
+        pstore = partitioned_copy(store, os.path.join(SCALE_ROOT, "part"))
+        copy_s = time.perf_counter() - t0
+        log(f"[scale_out] {SCALE_WORKERS}-worker partitioned copy in "
+            f"{copy_s:.1f} s")
+        remote, k1 = remote_tier(torch, dev, store, pstore, scores,
+                                 trace_ids, ops, refs)
+        log(f"[scale_out] remote tier: {remote}")
+        peer = dead_peer(torch, dev, store, pstore, scores, trace_ids)
+        log(f"[scale_out] dead peer: {peer}")
+        del pstore
+        fleet = fleet_phase(torch, dev, g, store, wl, SCALE_ROOT)
+        log(f"[scale_out] fleet: {fleet}")
+    finally:
+        shutil.rmtree(SCALE_ROOT, ignore_errors=True)
+    return ({"workers": SCALE_WORKERS, "me": 0, "partition": "hash",
+             "copy_s": copy_s, "remote_tier": remote, "dead_peer": peer,
+             "fleet": fleet, "phase_s": time.perf_counter() - t0}, k1)
+
+
 def serve(srv, workload):
     futs = [srv.submit(s, k, t) for s, t, k in workload]
     stats = srv.flush()
@@ -1382,6 +1790,7 @@ def main(argv):
             as srv:
         cache, batcher = srv.cache, srv.batcher
         submit, build_mb = cache.submit_planned, batcher.build
+        scores = cache.policy.initial_scores()     # the presampled hotness
 
         def submit_rec(ids, n_rows=None):
             seen_ids.append(ids)
@@ -1460,7 +1869,7 @@ def main(argv):
             lk_args = (torch.from_numpy(seen_ids[0].astype("int32")).to(dev),
                        cache._loc_dev, cache._slot_dev)
             dt, ht = cache.device_tier, cache.host_tier
-        k1_train, k3_train, k3_counts = training_rows(
+        k1_train, k3_train, k3_counts, train_nodes = training_rows(
             torch, dev, g, cache, g_ops, s_ops, l_ops, l_ref)
         kernels.append(dict(
             name="fused_cache_lookup", route="cuda",
@@ -1543,6 +1952,12 @@ def main(argv):
     log(f"[cpu] same {st_cpu.served} requests on the CPU in "
         f"{time.perf_counter() - t0:.1f} s; max |logit err| {cpu_err:.3g}")
 
+    # --- 5a. scale-out: remote tier, dead peer, fleet ---------------------
+    scale_out, kernels[0]["remote_tier"] = phase_scale_out(
+        torch, dev, g, store, scores, seen_ids + [train_nodes], wl,
+        (g_ops, s_ops, l_ops), (g_ref, s_ref, l_ref))
+    log(f"[scale_out] phase in {scale_out['phase_s']:.1f} s")
+
     # --- 5b. out-of-core training on the card ---------------------------
     t0 = time.perf_counter()
     train, step, counts = phase_train(torch, dev, g, store,
@@ -1586,6 +2001,7 @@ def main(argv):
     print(json.dumps({"server": server, "card": smi}))
     print(json.dumps({"train": train, "card": smi}))
     print(json.dumps({"llm": llm, "card": smi}))
+    print(json.dumps({"scale_out": scale_out, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -694,3 +694,108 @@ def test_gpu_trainer_matches_cpu(tmp_path, kw):
     np.testing.assert_allclose(la, lb, rtol=1e-4)
     for x, y in zip(pa, pb):
         assert (x - y).abs().max() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# scale-out: the cache's remote tier and the serving fleet on the card
+# ---------------------------------------------------------------------------
+
+from repro_torch.distributed.partition import (  # noqa: E402
+    PartitionedFeatureStore, make_partition)
+from repro_torch.distributed.remote_engine import \
+    RemoteIOEngine  # noqa: E402
+
+
+def test_gpu_remote_tier_cache_matches_cpu(tmp_path):
+    """A cache over a 4-worker partitioned store and a RemoteIOEngine
+    (me=0) on the card against the same on the CPU: peer-owned rows sit at
+    base tier 3, K1 emits their first occurrences as its remote miss list,
+    and the rows, CacheStats (wall time aside) and the engines' row
+    counters are identical."""
+    dev = _cuda()
+    pstore = PartitionedFeatureStore(
+        str(tmp_path / "fleet"), 2048, 64, make_partition("hash", 2048, 4),
+        n_shards=2, create=True, rng_seed=5)
+    hot = np.bincount(np.arange(4096) % 97 * 21 % 2048, minlength=2048)
+    engines = [RemoteIOEngine(pstore, me=0, chaos=None) for _ in range(2)]
+    caches = [HeteroCache(pstore, hot, 100, 200, eng, device=d)
+              for eng, d in zip(engines, (dev, "cpu"))]
+    rng = np.random.default_rng(3)
+    before, remote_listed = lookup_ops.launches, 0
+    try:
+        assert caches[0].host_tier.is_pinned()
+        assert (caches[0]._base_loc == 3).sum() > 1000
+        for ids in (rng.integers(0, 2048, 300), np.repeat(np.arange(20), 9),
+                    rng.integers(0, 2048, 1500), np.array([5]),
+                    np.empty(0, np.int64)):
+            pg = caches[0].submit_planned(ids)
+            remote_listed += len(pg.plan[3][0])
+            a = caches[0].complete_planned(pg)
+            b = caches[1].gather(ids)
+            assert a.device.type == "cuda"
+            assert torch.equal(a.cpu(), b)
+            np.testing.assert_array_equal(b.numpy(), pstore.read_rows(ids))
+        assert lookup_ops.launches - before == 4 and remote_listed > 0
+        va, vb = (c.stats()._values() for c in caches)
+        va.pop("wall_s"), vb.pop("wall_s")
+        assert va == vb and va["remote_hits"] > 0
+        assert [(e.local_rows, e.remote_rows) for e in engines] == \
+            [(engines[1].local_rows, engines[1].remote_rows)] * 2
+    finally:
+        for c in caches:
+            c.close()
+        for e in engines:
+            e.close()
+
+
+def test_gpu_fleet_matches_cpu(tmp_path):
+    """A 2-replica fleet on the card against the same fleet on the CPU
+    with the card's parameters: the same routes, the same answered
+    requests, logits within 1e-4, the same invalidated rows after an
+    owner-write, and the written rows read back on every replica."""
+    from repro_torch.distributed.fleet import ServingFleet
+    _cuda()
+    g = synth_graph(2048, 8, skew=1.2, seed=0)
+    kw = dict(request_batch_size=16, fanouts=(4, 3), hidden=32,
+              max_batch_requests=4, presample_batches=1, chaos=None)
+    rng = np.random.default_rng(2)
+    reqs = [rng.choice(2048, 16, replace=False) for _ in range(12)]
+    hot = np.arange(64)
+    new = np.full((64, 64), 2.5, np.float32)
+    runs, params = [], None
+    for where in ("cuda", "cpu"):
+        store = FeatureStore(str(tmp_path / where), 2048, 64, n_shards=4,
+                             create=True, rng_seed=5, writable=True)
+        with ServingFleet(g, store, n_replicas=2, seed=1, params=params,
+                          cfg=ServerConfig(device=where, **kw)) as fleet:
+            if params is None:
+                params = {"layers": [{k: v.cpu() for k, v in lp.items()}
+                                     for lp in fleet.params["layers"]],
+                          "head": {k: v.cpu() for k, v in
+                                   fleet.params["head"].items()}}
+                assert fleet.replicas[0].cache.device_tier.is_cuda
+            out = []
+            for rnd in range(2):
+                futs = [fleet.submit(s) for s in reqs]
+                fleet.flush()
+                out.append([(i, f.result()) for f, i in futs])
+                if rnd == 0:
+                    fleet.write_embeddings(hot, new)
+            for i, rep in enumerate(fleet.replicas):
+                fleet._settle_invalidations(i)
+                assert torch.equal(rep.cache.gather(hot).cpu(),
+                                   torch.from_numpy(new))
+            assert fleet._settle_invalidations(0) == 0
+            np.testing.assert_array_equal(store.read_rows(hot), new)
+            runs.append((out, fleet.router.route_counts.copy(),
+                         fleet.invalidated_rows))
+    (oa, ra, ia), (ob, rb, ib) = runs
+    np.testing.assert_array_equal(ra, rb)
+    assert ia == ib > 0
+    for rnd_a, rnd_b in zip(oa, ob):
+        for (i, a), (j, b) in zip(rnd_a, rnd_b):
+            assert i == j and (a is None) == (b is None)
+            if a is not None:
+                assert a["latency_v"] == b["latency_v"]
+                np.testing.assert_allclose(a["logits"], b["logits"],
+                                           rtol=1e-4, atol=1e-4)

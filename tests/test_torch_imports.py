@@ -1,7 +1,10 @@
 """Guards for the port's package rules: it imports no JAX and nothing of
-the reference package (not even a module with no JAX in it), and its
-entry points default to the card and refuse to run quietly on the CPU."""
+the reference package (not even a module with no JAX in it), its copies
+of the reference's framework-free modules differ from them only in import
+and docstring lines, and its entry points default to the card and refuse
+to run quietly on the CPU."""
 import ast
+import difflib
 import os
 
 import numpy as np
@@ -66,6 +69,81 @@ def test_guard_catches_forbidden_imports(tmp_path):
                  "__import__('jaxlib')\nimport repro_torch.core.rng\n")
     assert _bad_imports(str(p)) == ["jax.numpy", "repro.core", "repro.gnn",
                                     "jaxlib"]
+
+
+# the reference's framework-free modules the port keeps as copies, paths
+# relative to src/repro and src/repro_torch
+COPIES = (["core/" + m + ".py" for m in ("rng", "simulator", "iostack",
+                                         "writeback", "policy", "hotness",
+                                         "pipeline")]
+          + ["ft/chaos.py", "ft/failures.py", "gnn/graph.py",
+             "gnn/sampling.py", "serving/scheduler.py", "serving/stats.py",
+             "distributed/partition.py", "distributed/remote_engine.py"]
+          + ["obs/" + f for f in sorted(os.listdir(os.path.join(PORT, "obs")))
+             if f.endswith(".py")]
+          + ["configs/" + f
+             for f in sorted(os.listdir(os.path.join(PORT, "configs")))
+             if f.endswith(".py")])
+
+
+def _import_or_docstring_lines(src: str) -> set:
+    """Line numbers of ``src`` inside an import statement (``import``,
+    ``from``, ``importlib.import_module``) or a docstring."""
+    ok = set()
+    for node in ast.walk(ast.parse(src)):
+        span = None
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            span = node
+        elif isinstance(node, ast.Call) and isinstance(
+                node.func, ast.Attribute) and \
+                node.func.attr == "import_module":
+            span = node
+        elif isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                               ast.AsyncFunctionDef)) and node.body and \
+                isinstance(node.body[0], ast.Expr) and \
+                isinstance(node.body[0].value, ast.Constant) and \
+                isinstance(node.body[0].value.value, str):
+            span = node.body[0]
+        if span is not None:
+            ok.update(range(span.lineno, span.end_lineno + 1))
+    return ok
+
+
+def _copy_drift(ref_src: str, port_src: str) -> list:
+    """Lines where the copy differs from the reference outside import and
+    docstring lines: ``(side, line number, text)``."""
+    ok_ref = _import_or_docstring_lines(ref_src)
+    ok_port = _import_or_docstring_lines(port_src)
+    a, b = ref_src.splitlines(), port_src.splitlines()
+    drift = []
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(
+            None, a, b, autojunk=False).get_opcodes():
+        if tag != "equal":
+            drift += [("-", i + 1, a[i]) for i in range(i1, i2)
+                      if i + 1 not in ok_ref]
+            drift += [("+", j + 1, b[j]) for j in range(j1, j2)
+                      if j + 1 not in ok_port]
+    return drift
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copies_differ_only_in_imports_and_docstrings(rel):
+    with open(os.path.join(ROOT, "src", "repro", rel)) as f:
+        ref_src = f.read()
+    with open(os.path.join(PORT, rel)) as f:
+        port_src = f.read()
+    assert _copy_drift(ref_src, port_src) == []
+
+
+def test_copy_check_catches_code_changes():
+    ref_src = ('"""doc."""\nfrom repro.core import rng\n\n\ndef f(x):\n'
+               '    """Add one."""\n    return x + 1\n')
+    ok = ref_src.replace("repro.core", "repro_torch.core").replace(
+        "Add one.", "Add one, as the reference does.")
+    assert _copy_drift(ref_src, ok) == []
+    bad = ok.replace("x + 1", "x + 2")
+    assert _copy_drift(ref_src, bad) == [("-", 7, "    return x + 1"),
+                                         ("+", 7, "    return x + 2")]
 
 
 def test_server_config_defaults_to_the_card():

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one card: GNN inference serving (K1-K3),
 scale-out (a remote-tier cache, a dead peer, a serving fleet; K1-K3),
 out-of-core GNN training (K1, K2/K3 forward and backward) and LM
-serving, prefill then greedy decode (K4, K5).
+serving of every registered family, prefill then greedy decode (K4, K5).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
@@ -30,8 +30,13 @@ failure raises and the script exits non-zero:
                packed qkv: f32 at S in {1, 24, 129}, bf16 at S in {1, 24,
                129, 1000}, hd in {32, 64, 80, 128}, GQA groups {1, 3, 8},
                causal or not, causal S=100 over T=612 at q_offset 512, bf16
-               S=4096 at one GQA shape, each call on the route its dtype
-               and width call for; K5:
+               S=4096 at one GQA shape; hd 96, 112 and 256 at S 1 and 129
+               (GQA 10) and the q_offset case; windows of 1, 127, 128 and
+               129 at hd 64, 128 and 256, causal or not, and 64 at the
+               q_offset case; whisper's non-causal 64 x 1500, 1500 x 1500
+               and 37 x 611 at hd 64; recurrentgemma's S 4096 at window
+               2048 (hd 256, MQA); f32 and bf16, each call on the route
+               its dtype and width call for; K5:
                N in {8, 16, 32, 64}, T in {0, 1, 5, 17, 64, 1000}, logw at
                -20, -6, -1e-4 and mixed, with and without a state, B*H of
                1 and 256);
@@ -123,24 +128,47 @@ failure raises and the script exits non-zero:
                1e-4 (tolerances on the stores in ``phase_train_cpu``);
                two faulted card runs (dL/dfeats in bf16; the gather's
                gradient cut) are controls the checks must reject;
-  6. llm     — llama3.2-3b, then rwkv6-7b, at full published width in
-               bf16 with random weights from a seeded CUDA generator (each
-               freed before the next): batch 4, a 1024-token prompt, one
+  6. llm     — llama3.2-3b, rwkv6-7b, qwen2-moe-a2.7b, recurrentgemma-2b,
+               phi-3-vision-4.2b, whisper-small and kimi-k2-1t-a32b at
+               full published width in bf16 with random weights from a
+               seeded CUDA generator (each freed before the next): batch 4,
+               a 1024-token prompt (recurrentgemma 4096, twice its window;
+               phi-3-vision 1024 stub-frontend embeddings; whisper 1500
+               stub encoder frames and a 64-token prompt), one
                make_prefill_step then 32 make_decode_step calls with greedy
-               tokens.  The K4/K5 counters are zeroed just before and read
-               just after: K4 must launch once per llama layer (28), all
-               on the tensor-core route, K5 once per rwkv layer (32).
-               Prefill ms, decode ms per token, tok/s, then one profiled
+               tokens.  kimi-k2 is cut to 1 of its 61 layers (the one cut:
+               the whole model cannot fit on one card).  The K4/K5
+               counters are zeroed just before and read just after: K4
+               must launch once per attention layer (28, 24, 8 windowed,
+               32, 36 = 12 encoder + 12 self + 12 cross, 1), K5 once per
+               rwkv layer (32), every bf16 K4 launch on the route its
+               head width calls for (the tensor cores at 64-128, the CUDA
+               cores at recurrentgemma's 256), and K4's own count by use
+               (causal, window, S == T) as ``k4_uses_for`` expects; phase
+               7's K4 rows take their launches from it.  Prefill ms,
+               decode ms per token, tok/s, peak memory, then one profiled
                prefill and 4 profiled decode steps for the device's busy
                share and its top operations;
   7. kernels — K4 and K5 against their plain versions on the inputs the
-               llm run gave them (layer 0's q/k/v; layer 0's r/k/v/logw),
-               timed as in phase 4, with SDPA as K4's library yardstick
-               (K4's entry names its route, ``kernel_route``);
+               llm runs gave them (K4: llama layer 0, recurrentgemma's
+               first attention layer with its window and, beside it, the
+               same inputs without, phi-3-vision and kimi-k2 layer 0,
+               whisper's encoder layer 0 and decoder layer 0's
+               cross-attention; K5: rwkv layer 0; bf16 K4 rows within
+               2^-6, each with its largest and mean |output|), timed as
+               in phase 4, with SDPA as K4's library yardstick (given the
+               boolean mask where there is a window); the windowed K4
+               must take less time than the same inputs without the
+               window (each entry names its route, ``kernel_route``);
   8. cpu     — prefill and 8 decode steps at .reduced() width on the card
-               and on the CPU (plain versions), both families, float32
+               and on the CPU (plain versions), every family
+               (recurrentgemma at window 8 over a 24-token prompt), float32
                (logits and caches within 1e-4) and bfloat16 (within 5e-2 of
-               the largest magnitude).
+               the largest magnitude), K4 launched once per attention in
+               each prefill.  The MoE configs' bf16 card runs take the
+               CPU's routing (``RoutingReplay``: a rounding difference can
+               flip a top-k choice), so the bf16 path after the router is
+               compared; the card's own flips are counted.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (K1-K5), one ``{"server": ...}`` line, one ``{"train": ...}`` line, one
@@ -177,7 +205,17 @@ CFG = dict(model="sage", hidden=256, fanouts=(10, 5), request_batch_size=64,
 REQUESTS, RATE = 64, 20_000     # 64-seed requests; open-loop virtual req/s
 DATA = os.path.join(ROOT, "build", "smoke_data")    # IG-shaped store
 LLM_ARCHS = ("llama3.2-3b", "rwkv6-7b")
-LLM_BATCH, LLM_PROMPT, LLM_DECODE, LLM_SEED = 4, 1024, 32, 0
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "recurrentgemma-2b", "phi-3-vision-4.2b",
+                "whisper-small", "kimi-k2-1t-a32b")
+LLM_BATCH, LLM_DECODE, LLM_SEED = 4, 32, 0
+# prompt tokens per config, 1024 where not named: recurrentgemma twice its
+# window, so the band and the ring buffer both act; whisper's decoder
+# prompt beside its 30-second input (1500 encoder frames)
+LLM_PROMPT = {"recurrentgemma-2b": 4096, "whisper-small": 64}
+WHISPER_FRAMES = 1500
+# the one cut: kimi-k2's 61 layers (about 2 TB in bf16) cannot fit on one
+# card; one layer at full width is about 19 B parameters, 39 GB
+LLM_DEPTH = {"kimi-k2-1t-a32b": 1}
 TRAIN_BATCH, TRAIN_FANOUTS = 1024, (25, 10)     # the trainer's defaults
 TRAIN_ROW_DIM, TRAIN_HIDDEN = 1024, 256     # IG rows; the trainer's hidden
 TRAIN_N_PAD = TRAIN_BATCH * (1 + 25 + 25 * 10)      # 282,624 rows per batch
@@ -267,12 +305,16 @@ def timed(fn, reps=20, warm=3):
 
 def timing(kernel, plain, library=None) -> dict:
     """The kernel line's time fields: device time where the profiler has
-    it, else the event time (``timed_by`` says which), the event time of
-    the kernel beside it, and the kernel's device time per launch."""
+    it for the kernel, its plain version and the library call alike, else
+    the event time of all three (``timed_by`` says which: the profiler
+    drops a call's device time now and then, and one row never mixes the
+    two), the event time of the kernel beside it, and the kernel's device
+    time per launch."""
     k_dev, k_ev, split = timed(kernel)
     p_dev, p_ev, _ = timed(plain, reps=5)
     l_dev, l_ev, _ = timed(library) if library is not None else (None,) * 3
-    by_device = k_dev is not None
+    by_device = k_dev is not None and p_dev is not None and (
+        library is None or l_dev is not None)
     return dict(ms=k_dev if by_device else k_ev,
                 plain_ms=p_dev if by_device else p_ev,
                 library_ms=(None if library is None
@@ -622,21 +664,20 @@ def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
     cores)."""
     gen = torch.Generator(device=dev).manual_seed(1)
 
-    def k4(dtype, tol, S, T, hd, G, causal, q_offset=0):
-        K = 2
+    def k4(dtype, tol, S, T, hd, G, causal, q_offset=0, window=0, K=2):
         H = K * G
         qkv = torch.randn(2, max(S, T), H + 2 * K, hd, generator=gen,
                           device=dev).to(dtype)
         q, k, v = qkv[:, :S, :H], qkv[:, :T, H:H + K], qkv[:, :T, H + K:]
-        route = ("tensor_cores" if dtype == torch.bfloat16 and hd >= 64
-                 else "cuda_cores")
+        route = ("tensor_cores" if dtype == torch.bfloat16
+                 and hd in fa_ops.TENSOR_CORE_HEAD_DIMS else "cuda_cores")
         before = fa_ops.route_launches[route]
-        got = fa_ops.flash_attention(q, k, v, causal, q_offset)
+        got = fa_ops.flash_attention(q, k, v, causal, q_offset, window)
         torch.cuda.synchronize()
         err = float((got.float() - fa_ref.attention_ref(
-            q, k, v, causal, q_offset).float()).abs().max())
-        case = (f"S={S} T={T} hd={hd} G={G} causal={causal} "
-                f"q_offset={q_offset} {dtype}")
+            q, k, v, causal, q_offset, window).float()).abs().max())
+        case = (f"S={S} T={T} hd={hd} G={G} K={K} causal={causal} "
+                f"q_offset={q_offset} window={window} {dtype}")
         if not err <= tol:
             raise AssertionError(f"K4 differs by {err} at {case}")
         if fa_ops.route_launches[route] != before + 1:
@@ -654,6 +695,26 @@ def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
             k4(dtype, tol, 100, 612, hd, 3, True, 512)
     for causal in (True, False):
         k4(torch.bfloat16, 2e-2, 4096, 4096, 128, 8, causal)
+    # the LM families' widths (phi-3-vision 96, kimi-k2 112,
+    # recurrentgemma 256), local-attention windows and whisper's
+    # non-causal ragged S != T
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for hd in (96, 112, 256):
+            for S, G in ((1, 1), (129, 10)):
+                for causal in (True, False):
+                    k4(dtype, tol, S, S, hd, G, causal)
+            k4(dtype, tol, 100, 612, hd, 3, True, 512)
+        for hd in (64, 128, 256):
+            for window in (1, 127, 128, 129):
+                for causal in (True, False):
+                    k4(dtype, tol, 300, 300, hd, 3, causal, 0, window)
+            k4(dtype, tol, 100, 612, hd, 3, True, 512, 64)
+        for S, T in ((64, 1500), (1500, 1500), (37, 611)):
+            k4(dtype, tol, S, T, 64, 1, False, K=12)
+    # recurrentgemma's prefill shape in both dtypes: in float32 a key
+    # missed or added at the band's edge (about 1/2048 of an output) shows
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        k4(dtype, tol, 4096, 4096, 256, 10, True, 0, 2048, K=1)
     for N in (8, 16, 32, 64):
         for T in (0, 1, 5, 17, 64, 1000):
             for lw in (-20.0, -6.0, -1e-4, None):     # None: mixed
@@ -690,47 +751,104 @@ def top_ops(prof, n=6, per=1):
                             key=lambda e: -e.self_device_time_total)[:n]}
 
 
-def run_llm(torch, dev, cfg, counters):
+def llm_plan(cfg):
+    """(batch, prompt, encoder frames) of the LM phase for ``cfg``, and the
+    K4 and K5 launches one prefill makes.  K4 runs every prefill attention:
+    once per attention layer, three times per whisper decoder layer
+    (self and cross) beside once per encoder layer."""
+    P = LLM_PROMPT.get(cfg.name, 1024)
+    if cfg.enc_dec:
+        k4 = cfg.n_enc_layers + 2 * cfg.n_layers
+    elif cfg.pattern:
+        k4 = sum(1 for i in range(cfg.n_layers)
+                 if cfg.pattern[i % len(cfg.pattern)] == "attn")
+    else:
+        k4 = cfg.n_layers if cfg.block == "attn" else 0
+    return (LLM_BATCH, P, WHISPER_FRAMES if cfg.enc_dec else 0,
+            {"K4": k4, "K5": cfg.n_layers if cfg.block == "rwkv" else 0})
+
+
+def k4_uses_for(cfg, n):
+    """K4's ``launches_by_use`` after one prefill of ``cfg`` with ``n``
+    launches, keyed (causal, window, S == T): whisper's encoder
+    self-attention, decoder self-attention and cross-attention apart."""
+    if cfg.enc_dec:
+        return {(False, 0, True): cfg.n_enc_layers,
+                (True, 0, True): cfg.n_layers, (False, 0, False): cfg.n_layers}
+    return {(True, cfg.window, True): n} if n else {}
+
+
+def use_name(use):
+    causal, window, square = use
+    return (f"{'causal' if causal else 'full'}"
+            f"{f' window={window}' if window else ''} "
+            f"{'self' if square else 'cross'}")
+
+
+def k4_routes_for(fa_ops, cfg, n):
+    """The routes ``n`` bf16 K4 launches of ``cfg`` take, by head width:
+    the tensor cores at 64-128; the CUDA cores at recurrentgemma's 256,
+    which the tensor-core route does not take yet (ROADMAP queue 2)."""
+    tc = cfg.head_dim in fa_ops.TENSOR_CORE_HEAD_DIMS
+    return {"tensor_cores": n if tc else 0, "cuda_cores": 0 if tc else n}
+
+
+def run_llm(torch, dev, cfg, counters, reduced=None):
     """Prefill then greedy decode of one model (section 6 of the
-    docstring).  Returns (report, first K4/K5 call's inputs)."""
+    docstring).  Returns (report, {use: (first K4 call's inputs, K4
+    launches of that use)} with use K4's ``launches_by_use`` key (causal,
+    window, S == T), and the first K5 call's inputs)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import prefill_batch
     from repro_torch.models import attention, lm, rwkv6, steps
 
     name = cfg.name
-    B, P, N = LLM_BATCH, LLM_PROMPT, LLM_DECODE
+    B, P, Te, want = llm_plan(cfg)
+    N = LLM_DECODE
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(LLM_SEED)
     params = lm.init_params(gen, cfg, device=dev)
-    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev)
+    batch = prefill_batch(cfg, B, P, Te, dev, seed=LLM_SEED + 1)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
     prefill = steps.make_prefill_step(cfg, extra_len=N + 4)
     decode = steps.make_decode_step(cfg)
     # warm-up outside the counted run: kernels loaded, cuBLAS handles made
-    _, c = prefill(params, {"tokens": prompt[:, :64]})
-    decode(params, c, prompt[:, :1], 64)
+    _, c = prefill(params, prefill_batch(cfg, B, 64, 64 if Te else 0, dev))
+    decode(params, c, torch.zeros((B, 1), dtype=torch.long, device=dev), 64)
     del c
     torch.cuda.synchronize()
 
     seen = {}
 
-    def recorder(key, fn):
+    def k4_recorder(fn):
+        """Keeps each use's first inputs; counts nothing (the wrapper
+        counts its launches by use)."""
+        def call(q, k, v, causal=True, q_offset=0, window=0):
+            use = (bool(causal), int(window), q.shape[1] == k.shape[1])
+            seen.setdefault(use, (q, k, v, causal, q_offset, window))
+            return fn(q, k, v, causal=causal, q_offset=q_offset,
+                      window=window)
+        return call
+
+    def k5_recorder(fn):
         def call(*a, **kw):
-            seen.setdefault(key, (a, kw))
+            seen.setdefault("K5", (a, kw))
             return fn(*a, **kw)
         return call
     fa, wk = attention.flash_attention, rwkv6.wkv
-    attention.flash_attention = recorder("K4", fa)
-    rwkv6.wkv = recorder("K5", wk)
+    attention.flash_attention = k4_recorder(fa)
+    rwkv6.wkv = k5_recorder(wk)
     try:
         for m in counters.values():
             m.launches = 0
         fa_ops = counters["K4"]
         fa_ops.route_launches = dict.fromkeys(fa_ops.ROUTES, 0)
+        fa_ops.launches_by_use.clear()
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": prompt})
+        logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         tok = torch.argmax(logits, -1)[:, None]
@@ -743,17 +861,25 @@ def run_llm(torch, dev, cfg, counters):
         t2 = time.perf_counter()
         launches = {k: m.launches for k, m in counters.items()}
         k4_routes = dict(fa_ops.route_launches)
+        k4_uses = dict(fa_ops.launches_by_use)
     finally:
         attention.flash_attention, rwkv6.wkv = fa, wk
-    want = {"K4": cfg.n_layers if cfg.block == "attn" else 0,
-            "K5": cfg.n_layers if cfg.block == "rwkv" else 0}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
-    # a bf16 model's K4 launches all take the tensor-core route
-    want_routes = {"tensor_cores": want["K4"], "cuda_cores": 0}
+    # each bf16 K4 launch takes the route its head width calls for
+    want_routes = k4_routes_for(fa_ops, cfg, want["K4"])
+    if want_routes["cuda_cores"]:
+        log(f"[llm] {name}: K4 at head width {cfg.head_dim} runs the "
+            f"CUDA-core route, as its width calls for (the tensor-core "
+            f"route takes widths {fa_ops.TENSOR_CORE_HEAD_DIMS})")
     if k4_routes != want_routes:
         raise AssertionError(f"{name}: K4 routes {k4_routes}, expected "
                              f"{want_routes}")
+    want_uses = k4_uses_for(cfg, want["K4"])
+    if k4_uses != want_uses:
+        raise AssertionError(f"{name}: K4 launches by use {k4_uses}, "
+                             f"expected {want_uses}")
+    seen.update({use: (seen[use], n) for use, n in k4_uses.items()})
     tokens = torch.cat(out, dim=1)
     if logits.shape != (B, cfg.vocab) or not bool(
             torch.isfinite(logits.float()).all()):
@@ -761,14 +887,14 @@ def run_llm(torch, dev, cfg, counters):
                              "misshapen or not finite")
     if not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
         raise AssertionError(f"{name}: greedy tokens out of range")
-    for k, a in cache.items():
+    for k, a in lm.flat_cache(cache).items():
         if not bool(torch.isfinite(a.float()).all()):
             raise AssertionError(f"{name}: cache {k} is not finite")
 
     # one profiled prefill and 4 profiled decode steps: busy share, top ops
     with profile(activities=[ProfilerActivity.CUDA]) as pp:
         ta = time.perf_counter()
-        prefill(params, {"tokens": prompt})
+        prefill(params, batch)
         torch.cuda.synchronize()
         tb = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as pd:
@@ -785,60 +911,125 @@ def run_llm(torch, dev, cfg, counters):
         "decode_ms_per_token": (t2 - t1) * 1e3 / N,
         "decode_tok_s": B * N / (t2 - t1),
         "launches": launches, "k4_routes": k4_routes,
+        "k4_launches_by_use": {use_name(u): n for u, n in k4_uses.items()},
+        "k4_expected": {"launches": want["K4"], "routes": want_routes},
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "prefill_device_busy_share": device_ms(pp) / ((tb - ta) * 1e3),
         "decode_device_busy_share": device_ms(pd) / ((td - tc) * 1e3),
         "prefill_device_ms_by_op": top_ops(pp),
         "decode_device_ms_per_token_by_op": top_ops(pd, per=4),
         "sample": tokens[0, :8].tolist()}
+    if Te:
+        report["encoder_frames"] = Te
+    if cfg.window:
+        report["window"] = cfg.window
+    if reduced:
+        report["reduced"] = reduced
     log(f"[llm] {report}")
-    del params, cache, logits, prefill, decode
+    del params, cache, logits, prefill, decode, batch
     torch.cuda.empty_cache()
     return report, seen
 
 
-def llm_kernels(torch, F, inputs, report, fa_ops, fa_ref, wkv_ops, wkv_ref):
-    """K4 and K5 on the inputs the llm run gave them (layer 0), against
-    their plain versions, timed, with their bounds."""
-    (q, k, v), kw = inputs["K4"]
-    causal, q_offset = kw.get("causal", True), kw.get("q_offset", 0)
-    got = fa_ops.flash_attention(q, k, v, causal, q_offset)
+def k4_entry(torch, F, fa_ops, fa_ref, call, launches, label):
+    """K4 on one recorded call's inputs: against its plain version (bf16
+    within 2^-6 = 1.5625e-2, the largest error K4's rows have shown since
+    PR 14: one bf16 step of an output in [2, 4); float32 within 1e-4;
+    the plain output's largest and mean magnitude beside: a missed key at
+    the band's edge moves outputs by less than that bound, which
+    ``phase_edges_llm`` checks in float32 at this shape), timed beside
+    it and SDPA (given
+    the boolean mask where there is a window), with the bound: the
+    operations on the visible pairs over the bf16 peak, or the bytes,
+    whichever is larger."""
+    q, k, v, causal, q_offset, window = call
+    got = fa_ops.flash_attention(q, k, v, causal, q_offset, window)
     torch.cuda.synchronize()
-    err = float((got.float() - fa_ref.attention_ref(
-        q, k, v, causal, q_offset).float()).abs().max())
-    if not err <= 2e-2:
-        raise AssertionError(f"K4 differs on the llama3.2-3b inputs: {err}")
+    want = fa_ref.attention_ref(q, k, v, causal, q_offset, window).float()
+    err = float((got.float() - want).abs().max())
+    ref_max, ref_mean = float(want.abs().max()), float(want.abs().mean())
+    if not err <= (2.0 ** -6 if q.dtype == torch.bfloat16 else 1e-4):
+        raise AssertionError(f"K4 differs on the {label} inputs: {err}")
+    del want
     B, S, H, hd = q.shape
-    k4_route = fa_ops.pick_route(q.dtype, hd, [(t.data_ptr(), t.shape,
-                                                t.stride()) for t in (q, k, v)])
-    if k4_route != "tensor_cores":
-        raise AssertionError(f"K4 takes the {k4_route} route on the "
-                             "llama3.2-3b inputs")
-    T, K = k.shape[1], k.shape[2]
-    pairs = (sum(min(T, q_offset + i + 1) for i in range(S)) if causal
-             else S * T)
+    T = k.shape[1]
+    route = fa_ops.pick_route(q.dtype, hd, [(t.data_ptr(), t.shape,
+                                             t.stride()) for t in (q, k, v)])
+    mask = fa_ref.visible(S, T, causal, q_offset, window, q.device)
+    pairs = int(mask.sum())
     byts = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     ops = 4 * B * H * hd * pairs
     t_b, t_o = byts / HBM_BYTES_S * 1e3, ops / BF16_OPS_S * 1e3
+    sd_mask = (None if not window and (not causal or q_offset == 0)
+               else mask)
 
     def sdpa():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True)
-    k4 = dict(
-        name="flash_attention", route="cuda", kernel_route=k4_route,
+            attn_mask=sd_mask, is_causal=causal and sd_mask is None,
+            enable_gqa=True)
+    return dict(
+        name="flash_attention", route="cuda", kernel_route=route,
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:64",
-        launches=report["llama3.2-3b"]["launches"]["K4"], max_abs_err=err,
-        **timing(lambda: fa_ops.flash_attention(q, k, v, causal, q_offset),
-                 lambda: fa_ref.attention_ref(q, k, v, causal, q_offset),
+        launches=launches, max_abs_err=err, ref_abs_max=ref_max,
+        ref_abs_mean=ref_mean,
+        **timing(lambda: fa_ops.flash_attention(q, k, v, causal, q_offset,
+                                                window),
+                 lambda: fa_ref.attention_ref(q, k, v, causal, q_offset,
+                                              window),
                  sdpa),
         bound_ms=max(t_b, t_o), bound_by="bytes" if t_b > t_o else
-        "operations",
+        "operations", visible_pairs=pairs, input=label,
         shape=f"q={tuple(q.shape)} kv={tuple(k.shape)} {q.dtype} "
-              f"causal={causal}")
+              f"causal={causal} window={window}")
 
-    (r, kk, vv, logw, u, s0), _ = inputs["K5"]
+
+def llm_kernels(torch, F, inputs, report, fa_ops, fa_ref, wkv_ops, wkv_ref):
+    """K4 and K5 on the inputs the llm runs gave them, against their plain
+    versions, timed, with their bounds: K4 on llama layer 0 (the first
+    row, as in earlier slices), then recurrentgemma's first attention
+    layer (windowed; beside it the same inputs causal without the window),
+    phi-3-vision and kimi-k2 layer 0, whisper's encoder layer 0 and its
+    decoder layer 0's cross-attention; K5 on rwkv layer 0."""
+    def one(cfg_name, use, label):
+        call, launches = inputs[cfg_name][use]
+        return k4_entry(torch, F, fa_ops, fa_ref, call, launches,
+                        f"{cfg_name} {label}")
+
+    k4 = one("llama3.2-3b", (True, 0, True), "layer 0")
+    if k4["kernel_route"] != "tensor_cores":
+        raise AssertionError(f"K4 takes the {k4['kernel_route']} route on "
+                             "the llama3.2-3b inputs")
+    rows = [k4]
+    if "recurrentgemma-2b" in inputs:
+        rg = one("recurrentgemma-2b", (True, 2048, True),
+                 "layer 2 (the first attention layer), window 2048")
+        q, k, v, _, _, _ = inputs["recurrentgemma-2b"][(True, 2048, True)][0]
+        plain = k4_entry(torch, F, fa_ops, fa_ref, (q, k, v, True, 0, 0), 0,
+                         "recurrentgemma-2b layer 2 without the window")
+        rg["no_window"] = {key: plain[key] for key in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "visible_pairs", "max_abs_err", "timed_by", "event_ms")}
+        # one method for both: device times if both rows have them
+        key = ("ms" if rg["timed_by"] == plain["timed_by"] == "profiler"
+               else "event_ms")
+        if not rg[key] < plain[key]:
+            raise AssertionError(
+                f"K4 with window 2048 takes {rg[key]} ms, not less than "
+                f"the same inputs without it ({plain[key]} ms, {key}): the "
+                "tiles below the band are not skipped")
+        rows.append(rg)
+    for cfg_name, kind, label in (
+            ("phi-3-vision-4.2b", (True, 0, True), "layer 0"),
+            ("kimi-k2-1t-a32b", (True, 0, True), "layer 0"),
+            ("whisper-small", (False, 0, True), "encoder layer 0"),
+            ("whisper-small", (False, 0, False),
+             "decoder layer 0 cross-attention")):
+        if cfg_name in inputs:
+            rows.append(one(cfg_name, kind, label))
+
+    (r, kk, vv, logw, u, s0), _ = inputs["rwkv6-7b"]["K5"]
     y, s1 = wkv_ops.wkv(r, kk, vv, logw, u, s0)
     torch.cuda.synchronize()
     err = 0.0
@@ -861,50 +1052,118 @@ def llm_kernels(torch, F, inputs, report, fa_ops, fa_ref, wkv_ops, wkv_ref):
         "operations",
         shape=f"r={tuple(r.shape)} float32 logw in "
               f"[{float(logw.min()):.3g}, {float(logw.max()):.3g}]")
-    return [k4, k5]
+    return rows + [k5]
 
 
-def phase_cpu_llm(torch, dev):
-    """Prefill and 8 greedy decode steps at .reduced() width on the card
-    and on the CPU from the same parameters and tokens.  Returns the largest
-    logit difference per (config, dtype)."""
+class RoutingReplay:
+    """The MoE router's choices of one run (``mode = "record"``) fed in
+    call order to another (``mode = "replay"``) in place of its own, so
+    that a bf16 run on the card compares with the CPU's past a top-k
+    choice that rounding flips: everything after the router (dispatch,
+    capacity drops, the bf16 expert products, combine) is held to the
+    CPU's.  ``flips`` counts the replayed run's own choices that differed,
+    of ``choices``; the router itself is compared in float32."""
+
+    def __init__(self, moe):
+        self.moe, self.own = moe, moe.router_weights
+        self.log, self.mode, self.flips, self.choices = [], None, 0, 0
+
+    def __enter__(self):
+        self.moe.router_weights = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_weights = self.own
+
+    def route(self, logits, mcfg, valid):
+        topw, topi, aux, z = self.own(logits, mcfg, valid)
+        if self.mode == "record":
+            self.log.append((topw, topi))
+        elif self.mode == "replay":
+            w, i = self.log.pop(0)
+            self.flips += int((topi.cpu() != i).sum())
+            self.choices += i.numel()
+            topw, topi = w.to(topw.device), i.to(topi.device)
+        return topw, topi, aux, z
+
+
+def phase_cpu_llm(torch, dev, fa_ops):
+    """Prefill and 8 greedy decode steps at .reduced() width on the CPU
+    and on the card from the same parameters and inputs, every registered
+    family (recurrentgemma at window 8 over a 24-token prompt, so the band
+    and the ring buffer act): logits and every cache leaf within 1e-4
+    (float32) or 5e-2 of the largest magnitude (bf16) after each step, K4
+    launched once per attention.  MoE configs in bf16 run the card on the
+    CPU's routing (``RoutingReplay``; its own flips counted).  Returns the
+    largest logit difference per (config, dtype), and the MoE configs'
+    flips in bf16."""
     from repro_torch.configs import get_config
-    from repro_torch.models import lm, steps
-    errs = {}
-    for name in LLM_ARCHS:
+    from repro_torch.launch.serve import prefill_batch
+    from repro_torch.models import lm, moe, steps
+    errs, flips = {}, {}
+    for name in LLM_ARCHS + FAMILY_ARCHS:
         for dtype in ("float32", "bfloat16"):
-            cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype)
-            card, cpu = (lm.init_params(torch.Generator().manual_seed(7), cfg,
-                                        device=d) for d in (dev, "cpu"))
-            tok = torch.randint(0, cfg.vocab, (4, 24),
-                                generator=torch.Generator().manual_seed(8))
+            kw = {"window": 8} if name == "recurrentgemma-2b" else {}
+            cfg = dataclasses.replace(get_config(name).reduced(),
+                                      dtype=dtype, **kw)
+            cpu, card = (lm.init_params(torch.Generator().manual_seed(7), cfg,
+                                        device=d) for d in ("cpu", dev))
+            bb, ba = (prefill_batch(cfg, 4, 24, 30, d, seed=8)
+                      for d in ("cpu", dev))
             pre = steps.make_prefill_step(cfg, q_chunk=16, extra_len=8)
             dec = steps.make_decode_step(cfg)
-            (la, ca), (lb, cb) = (pre(card, {"tokens": tok.to(dev)}),
-                                  pre(cpu, {"tokens": tok}))
+            want_k4 = llm_plan(cfg)[3]["K4"]
+            replay = cfg.moe is not None and dtype == "bfloat16"
             worst = 0.0
-            for i in range(9):
-                for what, a, b in [("logits", la, lb)] + [
-                        (k, ca[k], cb[k]) for k in sorted(cb)]:
-                    a, b = a.cpu().float(), b.float()
-                    e = float((a - b).abs().max())
-                    ok = (torch.allclose(a, b, rtol=1e-4, atol=1e-4)
-                          if dtype == "float32"
-                          else e <= 5e-2 * float(b.abs().max()))
-                    if not ok:
-                        raise AssertionError(f"{name} {dtype} step {i} "
-                                             f"{what}: card vs CPU {e}")
-                    if what == "logits":
-                        worst = max(worst, e)
-                if i == 8:
-                    break
-                nxt = torch.argmax(lb, -1)[:, None]
-                (la, ca), (lb, cb) = (dec(card, ca, nxt.to(dev), 24 + i),
-                                      dec(cpu, cb, nxt, 24 + i))
+            with RoutingReplay(moe) as routing:
+                def both(step_cpu, step_card):
+                    routing.mode = "record" if replay else None
+                    out_cpu = step_cpu()
+                    routing.mode = "replay" if replay else None
+                    before = fa_ops.launches
+                    out_card = step_card()
+                    if routing.log:
+                        raise AssertionError(f"{name} {dtype}: "
+                                             f"{len(routing.log)} recorded "
+                                             "routings not replayed")
+                    return out_cpu, out_card, fa_ops.launches - before
+                (lb, cb), (la, ca), n = both(lambda: pre(cpu, bb),
+                                             lambda: pre(card, ba))
+                if n != want_k4:
+                    raise AssertionError(f"{name} {dtype}: K4 launched {n} "
+                                         f"times in prefill, not {want_k4}")
+                for i in range(9):
+                    want = lm.flat_cache(cb)
+                    for what, a, b in [("logits", la, lb)] + [
+                            (k, a, want[k])
+                            for k, a in lm.flat_cache(ca).items()]:
+                        a, b = a.cpu().float(), b.float()
+                        e = float((a - b).abs().max())
+                        ok = (torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                              if dtype == "float32"
+                              else e <= 5e-2 * float(b.abs().max()))
+                        if not ok:
+                            raise AssertionError(f"{name} {dtype} step {i} "
+                                                 f"{what}: card vs CPU {e}")
+                        if what == "logits":
+                            worst = max(worst, e)
+                    if i == 8:
+                        break
+                    nxt = torch.argmax(lb, -1)[:, None]
+                    (lb, cb), (la, ca), _ = both(
+                        lambda: dec(cpu, cb, nxt, 24 + i),
+                        lambda: dec(card, ca, nxt.to(dev), 24 + i))
             errs[f"{name}/{dtype}"] = worst
+            if replay:
+                if not routing.choices:
+                    raise AssertionError(f"{name} {dtype}: no routing "
+                                         "replayed")
+                flips[f"{name}/{dtype}"] = (
+                    f"{routing.flips} of {routing.choices} top-k choices")
     log(f"[cpu] reduced LM prefill + decode, card vs CPU, max |logit err| "
-        f"{errs}")
-    return errs
+        f"{errs}; the card's own MoE routing in bf16 differed from the "
+        f"CPU's in {flips or 'none'}")
+    return errs, flips
 
 
 def backward_launches(ops) -> int:
@@ -1981,10 +2240,13 @@ def main(argv):
     from repro_torch.configs import get_config
     counters = {"K4": fa_ops, "K5": wkv_ops}
     llm, inputs = {}, {}
-    for name in LLM_ARCHS:
+    for name in LLM_ARCHS + FAMILY_ARCHS:
         t0 = time.perf_counter()
-        llm[name], seen = run_llm(torch, dev, get_config(name), counters)
-        inputs.update(seen)
+        cfg, cut = get_config(name), None
+        if name in LLM_DEPTH:
+            cut = f"n_layers {cfg.n_layers} -> {LLM_DEPTH[name]}"
+            cfg = dataclasses.replace(cfg, n_layers=LLM_DEPTH[name])
+        llm[name], inputs[name] = run_llm(torch, dev, cfg, counters, cut)
         log(f"[llm] {name} done in {time.perf_counter() - t0:.1f} s")
 
     # --- 7. K4, K5 on the llm run's own inputs -----------------------------
@@ -1994,7 +2256,8 @@ def main(argv):
     torch.cuda.empty_cache()
 
     # --- 8. reduced LMs on the card against the CPU ------------------------
-    llm["cpu_max_abs_logit_err"] = phase_cpu_llm(torch, dev)
+    llm["cpu_max_abs_logit_err"], llm["cpu_bf16_moe_route_flips"] = \
+        phase_cpu_llm(torch, dev, fa_ops)
 
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,22 +18,35 @@
 // the wrapper copies nothing; only hd must be contiguous.  Heaviest
 // (latest) causal query tiles are scheduled first.
 //
+// Local attention (window > 0; recurrentgemma-2b's 2048, which the Pallas
+// kernel does not take: the reference computes it in XLA's chunked attend
+// with the mask q - k < window).  A query at position p sees keys
+// p - window < t (and t <= p when causal).  A CTA starts at the key tile
+// that holds the first key its first query sees, so tiles wholly below the
+// band are never loaded; tiles that cross either edge are masked per
+// element.  At S 4096 and window 2048 a quarter of the causal pairs lie
+// below the band.
+//
 // Bound on the H100: operations.  The causal prefill does 4 * hd FLOPs per
 // unmasked (query, key) pair — about 26 GFLOP per llama3.2-3b layer at
 // batch 4 x 1024 tokens — over 67 MB of q/k/v/o, so the bf16 tensor cores
 // (989 TFLOP/s) set the floor.  Two routes, chosen by the wrapper
 // (kernels/flash_attention/ops.py::pick_route):
 //
-// * tensor cores (helios_flash_attention_tc): bf16 at head widths 64, 80
-//   and 128, every prefill of the served configs.  wgmma fed by TMA; see
-//   the comment above namespace tc below.
+// * tensor cores (helios_flash_attention_tc): bf16 at head widths 64, 80,
+//   96, 112 and 128, every bf16 prefill of the served configs but
+//   recurrentgemma-2b's.  wgmma fed by TMA; see the comment above
+//   namespace tc below.
 // * CUDA cores (helios_flash_attention): float32 at every width, and bf16
-//   at widths 8-32 (the reduced configs).  Scores, exponentials and P.V in
-//   float32 from shared-memory tiles converted to float32 on load; each
-//   thread owns 4 query rows x 4 keys of a score tile and 4 rows x hd/8
-//   output columns, and a row's 8 threads are neighbouring lanes of one
-//   warp, so row max and sum are three shuffles and P stays warp-private in
-//   shared memory.
+//   at widths 8-32 (the reduced configs) and 256 (recurrentgemma-2b).
+//   Scores, exponentials and P.V in float32 from shared-memory tiles
+//   converted to float32 on load; each thread owns kRows query rows x 4
+//   keys of a score tile and kRows rows x hd/8 output columns, and a row's
+//   8 threads are neighbouring lanes of one warp, so row max and sum are
+//   three shuffles and P stays warp-private in shared memory.  A CTA holds
+//   64 query rows (4 per thread), and 32 at hd 256 (2 per thread): its
+//   float32 accumulator is then 2 x 32 registers a thread, where 64 rows
+//   would take 128, and its shared memory 103 KB, two CTAs to an SM.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -45,11 +58,24 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kColGroups = 8;                       // threads per query row
 constexpr int kRowGroups = kThreads / kColGroups;   // 16
-constexpr int kBQ = 64;                             // queries per CTA
 constexpr int kBK = 32;                             // keys per tile
-constexpr int kRows = kBQ / kRowGroups;             // 4 rows per thread
 constexpr int kKeys = kBK / kColGroups;             // 4 keys per thread
 constexpr float kLog2e = 1.4426950408889634f;
+
+// queries per CTA: 64, and 32 at hd 256 to keep the accumulator in
+// registers
+template <int HD>
+__host__ __device__ constexpr int block_q() {
+  return HD > 128 ? 32 : 64;
+}
+
+// the first key tile, a multiple of kBK, holding a key that a query at
+// position p0 (or later) sees under the window; 0 without one
+__host__ __device__ __forceinline__ int first_key(int p0, int window,
+                                                  int tile) {
+  const int lo = window > 0 ? p0 - window + 1 : 0;
+  return lo > 0 ? lo / tile * tile : 0;
+}
 
 struct Strides {   // element strides of the batch, sequence and head axes
   int64_t qb, qs, qh, kb, ks, kh, vb, vs, vh;
@@ -66,7 +92,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 template <int HD>
 constexpr int smem_bytes() {   // padded rows: conflict-free column reads
-  return 4 * (kBQ * (HD + 1) + 2 * kBK * (HD + 1) + kBQ * (kBK + 1));
+  return 4 * (block_q<HD>() * (HD + 1) + 2 * kBK * (HD + 1) +
+              block_q<HD>() * (kBK + 1));
 }
 
 __device__ __forceinline__ float row_max(float x) {
@@ -87,7 +114,9 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, int S,
                      int Tk, int H, int G, Strides st, float scale_log2,
-                     int causal, int q_offset) {
+                     int causal, int q_offset, int window) {
+  constexpr int kBQ = block_q<HD>();
+  constexpr int kRows = kBQ / kRowGroups;  // query rows per thread
   constexpr int LD = HD + 1;
   constexpr int LP = kBK + 1;
   constexpr int kDims = HD / kColGroups;   // output columns per thread
@@ -126,7 +155,8 @@ __global__ void __launch_bounds__(kThreads)
   // keys any query of the tile can see
   const int kv_end =
       causal ? min(Tk, q_offset + min(q0 + kBQ, S)) : Tk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  for (int k0 = first_key(q_offset + q0, window, kBK); k0 < kv_end;
+       k0 += kBK) {
     __syncthreads();   // the previous tile's sK, sV are no longer read
     for (int e = tid; e < kBK * HD; e += kThreads) {
       const int r = e / HD, d = e - r * HD;
@@ -165,7 +195,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
         const int t = k0 + cg + kColGroups * j;
-        if (t >= Tk || (causal && t > qpos)) s[i][j] = -INFINITY;
+        if (t >= Tk || (causal && t > qpos) ||
+            (window > 0 && qpos - t >= window))
+          s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -215,31 +247,33 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int Tk, int H, int K, const Strides& st, int causal, int q_offset,
-           float scale, cudaStream_t stream) {
+           int window, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
+  constexpr int bq = block_q<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  const dim3 grid(B * H, (S + bq - 1) / bq);
   flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H, H / K, st,
-      scale * kLog2e, causal, q_offset);
+      scale * kLog2e, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 at every width; bf16 only at 8-32 (wider bf16 heads take the
-// tensor-core route, so no CUDA-core instance is built for them)
+// float32 at every width; bf16 only at 8-32 and 256 (bf16 heads of 64-128
+// take the tensor-core route, so no CUDA-core instance is built for them)
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 int B, int S, int Tk, int H, int K, const Strides& st,
-                int causal, int q_offset, float scale, cudaStream_t s) {
+                int causal, int q_offset, int window, float scale,
+                cudaStream_t s) {
 #define HELIOS_FA_CASE(D)                                                     \
   case D:                                                                     \
-    if constexpr (sizeof(T) == 4 || D <= 32)                                  \
+    if constexpr (sizeof(T) == 4 || D <= 32 || D == 256)                      \
       return launch<T, D>(q, k, v, o, B, S, Tk, H, K, st, causal, q_offset,   \
-                          scale, s);                                          \
+                          window, scale, s);                                  \
     break;
   switch (hd) {
     HELIOS_FA_CASE(8)
@@ -247,7 +281,10 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     HELIOS_FA_CASE(32)
     HELIOS_FA_CASE(64)
     HELIOS_FA_CASE(80)
+    HELIOS_FA_CASE(96)
+    HELIOS_FA_CASE(112)
     HELIOS_FA_CASE(128)
+    HELIOS_FA_CASE(256)
     default:
       break;
   }
@@ -257,7 +294,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core route: bf16, head widths 64, 80 and 128, on sm_90a.
+// Tensor-core route: bf16, head widths 64, 80, 96, 112 and 128, on sm_90a.
 //
 // One CTA of three warpgroups owns 128 query rows of one (batch, head).
 // Warpgroup 0 is the producer: one thread issues TMA loads — the query tile
@@ -273,14 +310,15 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 // v's dtype before P.V — and accumulates O += P V with P as wgmma's register
 // operand and V read MN-major from shared memory through the descriptor's
 // transpose bit, so V is never transposed.  The normaliser l sums the
-// unrounded float32 P.  A tile past a warpgroup's last visible key is
-// skipped (its stage is still released).
+// unrounded float32 P.  A tile past a warpgroup's last visible key, or
+// wholly below its window, is skipped (its stage is still released); the
+// producer starts at the first tile the CTA's first query sees.
 //
 // Tiles are stored as the TMA writes them with 128-byte swizzle: a block of
 // 64 head columns (128 bytes) per row, 8-row atoms of 1024 bytes; a width
-// of 128 is two such blocks, and 80 is padded to 128 by the TMA's
-// out-of-bounds zero fill (the padding columns add zeros to S and are not
-// stored).  The same zero fill covers query rows past S and keys past T;
+// of 128 is two such blocks, and 80, 96 and 112 are padded to 128 by the
+// TMA's out-of-bounds zero fill (the padding columns add zeros to S and are
+// not stored).  The same zero fill covers query rows past S and keys past T;
 // padded keys are masked to -inf as well.
 // ---------------------------------------------------------------------------
 namespace tc {
@@ -478,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const __grid_constant__ CUtensorMap vmap,
                         __nv_bfloat16* __restrict__ o, int S, int Tk, int H,
                         int G, int hd, float scale_log2, int causal,
-                        int q_offset) {
+                        int q_offset, int window) {
   using L = Layout<HDP>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -492,9 +530,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  // keys any query of the tile can see
+  // key tiles [j0, j_end) hold the keys any query of the tile can see
   const int kv_end = causal ? min(Tk, q_offset + min(q0 + kBQ, S)) : Tk;
-  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int j_end = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int j0 = first_key(q_offset + q0, window, kBK) / kBK;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -517,9 +556,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_expect_tx(q_full, L::kQBytes);
       for (int c = 0; c < L::kCols; ++c)
         tma_load(sQ + c * kBQ * kRow, &qmap, q_full, 64 * c, q0, h, b);
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % kStages;
-        mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
+      for (int j = j0; j < j_end; ++j) {
+        const int s = (j - j0) % kStages;
+        mbar_wait(empty(s), (((j - j0) / kStages) & 1) ^ 1);
         mbar_expect_tx(k_full(s), L::kKVBytes);
         for (int c = 0; c < L::kCols; ++c)
           tma_load(sK + s * L::kKVBytes + c * kBK * kRow, &kmap, k_full(s),
@@ -549,12 +588,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     mbar_wait(q_full, 0);
 
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kStages, k0 = j * kBK;
-      const uint32_t parity = (j / kStages) & 1;
+    for (int j = j0; j < j_end; ++j) {
+      const int s = (j - j0) % kStages, k0 = j * kBK;
+      const uint32_t parity = ((j - j0) / kStages) & 1;
       const uint32_t tK = sK + s * L::kKVBytes, tV = sV + s * L::kKVBytes;
       mbar_wait(k_full(s), parity);
-      if (k0 < my_end) {
+      // the tile holds a key that some row of the warpgroup sees
+      if (k0 < my_end &&
+          (window <= 0 || k0 + kBK > q_offset + r0 - window + 1)) {
         // S = Q K^T in HDP / 16 steps of 16 head columns: a step moves 32
         // bytes along a 128-byte swizzled row, then on to the next block
         // of 64 columns.  The first step overwrites sc.
@@ -570,14 +611,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_wait_all();
         pin(sc);
 
-        // mask keys past T and, causally, past each row's position; only
-        // tiles that cross either edge need it
-        if (k0 + kBK > Tk || (causal && k0 + kBK - 1 > q_offset + r0)) {
+        // mask keys past T, causally past each row's position, and
+        // below its window; only tiles that cross one of those edges need it
+        if (k0 + kBK > Tk || (causal && k0 + kBK - 1 > q_offset + r0) ||
+            (window > 0 && q_offset + r0 + 63 - k0 >= window)) {
 #pragma unroll
           for (int i = 0; i < kBK / 2; ++i) {
             const int key = k0 + 8 * (i / 4) + col0 + i % 2;
             const int pos = q_offset + row + 8 * ((i / 2) % 2);
-            if (key >= Tk || (causal && key > pos)) sc[i] = -INFINITY;
+            if (key >= Tk || (causal && key > pos) ||
+                (window > 0 && pos - key >= window))
+              sc[i] = -INFINITY;
           }
         }
 
@@ -635,7 +679,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     // epilogue: O / l (0 for a row that saw no key), bf16 pairs straight to
-    // the (B, S, H, hd) output; the padding columns of hd 80 are dropped
+    // the (B, S, H, hd) output; the padding columns of hd 80-112 are dropped
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float lr = quad_sum(l[r]);
@@ -682,7 +726,7 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
 template <int HDP>
 int launch(const CUtensorMap& qm, const CUtensorMap& km,
            const CUtensorMap& vm, void* o, int B, int S, int Tk, int H,
-           int K, int hd, int causal, int q_offset, float scale,
+           int K, int hd, int causal, int q_offset, int window, float scale,
            cudaStream_t stream) {
   constexpr int bytes = Layout<HDP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -692,7 +736,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_fwd_tc_kernel<HDP><<<grid, kThreads, bytes, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), S, Tk, H, H / K, hd,
-      scale * 1.4426950408889634f, causal, q_offset);
+      scale * 1.4426950408889634f, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -703,41 +747,45 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
 // The CUDA-core route: q (B, S, H, hd), k and v (B, T, K, hd), with the
 // given element strides of their batch, sequence and head axes (hd
 // contiguous); o (B, S, H, hd) contiguous, same dtype (float32 when
-// is_bf16 == 0, else bfloat16).  hd is 8, 16, 32, 64, 80 or 128 for
-// float32 (the model widths, and the reduced configs' 8) and 8, 16 or 32
-// for bfloat16; H % K == 0.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported hd).
+// is_bf16 == 0, else bfloat16).  hd is 8, 16, 32, 64, 80, 96, 112, 128 or
+// 256 for float32 (the model widths, and the reduced configs' 8) and 8, 16,
+// 32 or 256 for bfloat16; H % K == 0.  window > 0: a query at position p
+// sees only keys t > p - window.  Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for an unsupported hd).
 extern "C" int helios_flash_attention(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
     int S, int T, int H, int K, int hd, int64_t q_sb, int64_t q_ss,
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
-    int64_t v_ss, int64_t v_sh, int causal, int q_offset, float scale,
-    void* stream) {
+    int64_t v_ss, int64_t v_sh, int causal, int q_offset, int window,
+    float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (T <= 0 || K <= 0 || H % K) return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, T, H, K, st,
-                                      causal, q_offset, scale, s);
+                                      causal, q_offset, window, scale, s);
   return dispatch_hd<float>(hd, q, k, v, o, B, S, T, H, K, st, causal,
-                            q_offset, scale, s);
+                            q_offset, window, scale, s);
 }
 
 // The tensor-core route: q (B, S, H, hd), k and v (B, T, K, hd), bf16, with
 // the given element strides of their batch, sequence and head axes (hd
 // contiguous; base pointers and strides 16-byte multiples, as TMA reads
-// them); o (B, S, H, hd) contiguous bf16.  hd is 64, 80 or 128; H % K == 0.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported shape), or minus the CUresult when a tensor map cannot be
-// built (-1000 when the driver has no cuTensorMapEncodeTiled).
+// them); o (B, S, H, hd) contiguous bf16.  hd is 64, 80, 96, 112 or 128;
+// H % K == 0; window as above.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported shape), or minus the CUresult
+// when a tensor map cannot be built (-1000 when the driver has no
+// cuTensorMapEncodeTiled).
 extern "C" int helios_flash_attention_tc(
     const void* q, const void* k, const void* v, void* o, int B, int S, int T,
     int H, int K, int hd, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-    int64_t v_sh, int causal, int q_offset, float scale, void* stream) {
+    int64_t v_sh, int causal, int q_offset, int window, float scale,
+    void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (T <= 0 || K <= 0 || H % K || (hd != 64 && hd != 80 && hd != 128))
+  if (T <= 0 || K <= 0 || H % K ||
+      (hd != 64 && hd != 80 && hd != 96 && hd != 112 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!encode_tiled()) return -1000;
   CUtensorMap qm, km, vm;
@@ -750,7 +798,7 @@ extern "C" int helios_flash_attention_tc(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 64)
     return tc::launch<64>(qm, km, vm, o, B, S, T, H, K, hd, causal, q_offset,
-                          scale, s);
+                          window, scale, s);
   return tc::launch<128>(qm, km, vm, o, B, S, T, H, K, hd, causal, q_offset,
-                         scale, s);
+                         window, scale, s);
 }

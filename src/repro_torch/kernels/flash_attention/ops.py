@@ -4,13 +4,20 @@ On CUDA tensors ``flash_attention`` launches one of two kernels of
 ``csrc/flash_attention.cu``, chosen by ``pick_route`` from the dtype, the
 head width and the alignment of q, k and v:
 
-- ``"tensor_cores"``: bf16 at head widths 64, 80 and 128 — every prefill
-  of the served configs.  wgmma on the bf16 tensor cores, fed by TMA; P is
-  rounded to bf16 before P.V, as the reference model does.
+- ``"tensor_cores"``: bf16 at head widths 64, 80, 96, 112 and 128 — every
+  bf16 prefill of the served configs but recurrentgemma's.  wgmma on the
+  bf16 tensor cores, fed by TMA (widths under 128 padded to 64 or 128 by
+  its zero fill); P is rounded to bf16 before P.V, as the reference model
+  does.
 - ``"cuda_cores"``: float32 at every width, and bf16 at widths 8-32 (the
-  reduced configs).  Scores, softmax and P.V in float32 on the CUDA cores.
+  reduced configs) and 256 (recurrentgemma-2b).  Scores, softmax and P.V
+  in float32 on the CUDA cores.
 
-Each launch counts in ``launches`` and in its route's ``route_launches``.
+Both take a local-attention ``window`` (query at position p sees keys
+t > p - window) and skip the key tiles that lie wholly below it.
+
+Each launch counts in ``launches``, in its route's ``route_launches`` and
+by use in ``launches_by_use``.
 On CPU tensors it runs the plain version (``ref.py``); anything else
 raises, and so does a CUDA tensor in a form neither kernel takes.  Both
 kernels read q, k and v in the model's own ``(B, S, H, hd)`` layout
@@ -30,12 +37,15 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 ROUTES = ("tensor_cores", "cuda_cores")
 launches = 0    # kernel launches since the last reset (chip_smoke reads it)
 route_launches = dict.fromkeys(ROUTES, 0)   # the same, per route
-HEAD_DIMS = (8, 16, 32, 64, 80, 128)
-TENSOR_CORE_HEAD_DIMS = (64, 80, 128)
+# (causal, window, S == T) -> launches: an encoder's self-attention, a
+# decoder's, a cross-attention and a local one tell apart
+launches_by_use: dict = {}
+HEAD_DIMS = (8, 16, 32, 64, 80, 96, 112, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 80, 96, 112, 128)
 TMA_ALIGN = 16    # bytes: TMA reads base pointers and strides of this unit
 
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
-         + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+         + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
 _ARGS_TC = _ARGS[:4] + _ARGS[5:]    # no dtype flag: bf16 only
 
 
@@ -50,7 +60,7 @@ def _lib() -> ctypes.CDLL:
 
 def pick_route(dtype: torch.dtype, hd: int, layouts) -> str:
     """The kernel that takes q, k, v of ``dtype`` and head width ``hd``:
-    ``"tensor_cores"`` for bf16 at widths 64, 80 and 128, else
+    ``"tensor_cores"`` for bf16 at widths 64-128, else
     ``"cuda_cores"``.  ``layouts`` gives each tensor's ``(data_ptr, shape,
     stride)``, strides in elements.  The tensor-core route loads by TMA,
     which takes only 16-byte-aligned base pointers and strides (the stride
@@ -112,16 +122,21 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0,
+                    window: int = 0) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, T, K, hd), H % K == 0, float32 or
     bfloat16.  Returns softmax(q k^T / sqrt(hd)) v as (B, S, H, hd) in q's
     dtype; scores and softmax in float32, P.V in float32 on the CUDA-core
     route and with P rounded to bf16 on the tensor-core route (the plain
-    version keeps P in float32).  ``causal``: query i sits at absolute
-    position ``q_offset + i`` and sees keys up to it."""
+    version keeps P in float32).  Query i sits at absolute position
+    ``q_offset + i``; ``causal``: it sees keys up to it; ``window`` > 0:
+    only keys less than ``window`` before it (``ref.visible``).  A query
+    that sees no key gets zeros."""
     global launches
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     if q.device.type == k.device.type == v.device.type == "cpu":
-        return attention_ref(q, k, v, causal, q_offset)
+        return attention_ref(q, k, v, causal, q_offset, window)
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -132,7 +147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lib = _lib()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    tail = (int(causal), int(q_offset), 1.0 / math.sqrt(hd),
+    tail = (int(causal), int(q_offset), int(window), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     if route == "tensor_cores":
         strides = [s for t in (q, k, v) for s in _tma_strides(t)]
@@ -149,4 +164,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(lib, rc, "flash_attention")
     launches += 1
     route_launches[route] += 1
+    use = (bool(causal), int(window), S == T)
+    launches_by_use[use] = launches_by_use.get(use, 0) + 1
     return out

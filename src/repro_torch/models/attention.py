@@ -4,11 +4,12 @@ Prefill attention (``attend``) runs the flash-attention kernel K4 on the
 card, which reads q, k, v in the model's ``(B, S, H, hd)`` layout and maps
 query head h to kv head ``h // G`` itself: bf16 at head widths 64-128 on
 the tensor cores (P rounded to bf16 before P.V, as the reference does),
-float32 and the reduced configs' narrow heads on the CUDA cores.  On the
-CPU it runs the plain version of the reference's chunked attention,
-local-attention window included.  Single-token decode (``decode_attend``)
-is an einsum in the reference, not a kernel, and stays plain PyTorch on
-both devices.
+float32, the reduced configs' narrow heads and recurrentgemma's 256 on the
+CUDA cores; local-attention windows, and the encoder's and the
+cross-attention's non-causal S != T, in both.  On the CPU it runs the
+plain version of the reference's chunked attention.  Single-token decode
+(``decode_attend``) is an einsum in the reference, not a kernel, and
+stays plain PyTorch on both devices.
 
 The reference's ``annotate`` sharding hints are dropped: on one card they
 are layout hints with no effect on values (the multi-device slice brings
@@ -144,7 +145,7 @@ def attend(q, k, v, *, causal=True, window=0, q_chunk=512, q_offset=0,
     ``q_offset`` is the absolute position of q[0] within the kv stream.
     Returns (B, S, H*hd).
 
-    On the card: the K4 kernel (``window`` must be 0).  Its bf16 route
+    On the card: the K4 kernel, window included.  Its bf16 route
     rounds the probabilities to bf16 before P.V, as the reference casts
     them to v's dtype, but from an online softmax: it rounds exp(s - m) for
     the running max m and divides by the float32 sum at the end, where the
@@ -153,12 +154,8 @@ def attend(q, k, v, *, causal=True, window=0, q_chunk=512, q_offset=0,
     the CPU: the reference's chunked attention (``_attend_plain``)."""
     B, S, H, hd = q.shape
     if q.device.type != "cpu":
-        if window:
-            raise NotImplementedError(
-                "local-attention windows (recurrentgemma-2b) have no kernel "
-                "on the card yet: they come with the hybrid/window attention "
-                "slice of ROADMAP.md (the rest of the LLM substrate)")
-        o = flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        o = flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                            window=window)
         return o.reshape(B, S, H * hd)
     return _attend_plain(q, k, v, causal, window, q_chunk, q_offset,
                          probs_dtype)

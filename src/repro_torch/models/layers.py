@@ -28,12 +28,22 @@ def param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+DRAW_CHUNK = 1 << 28    # float32 elements drawn at once: 1 GiB
+
+
 def normal_(t: torch.Tensor, gen: torch.Generator, stddev: float):
     """Fill ``t`` with N(0, stddev^2) drawn in float32 on the generator's
-    device, then cast (the reference's ``_normal``)."""
-    w = torch.randn(t.shape, generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    t.copy_(stddev * w)
+    device, then cast (the reference's ``_normal``).  A tensor of more than
+    ``DRAW_CHUNK`` elements is drawn in slices along its first axis, so the
+    float32 draw beside it stays near 1 GiB (kimi-k2's stacked experts
+    are 21 GiB in float32)."""
+    parts = [t]
+    if t.numel() > DRAW_CHUNK and t.dim() > 1:
+        parts = t.split(max(1, DRAW_CHUNK // (t.numel() // t.shape[0])))
+    for part in parts:
+        w = torch.randn(part.shape, generator=gen, dtype=torch.float32,
+                        device=gen.device)
+        part.copy_(w.mul_(stddev))
 
 
 def dense_init_(t: torch.Tensor, gen: torch.Generator,
@@ -46,6 +56,19 @@ def dense_init_(t: torch.Tensor, gen: torch.Generator,
 
 def embed_init_(t: torch.Tensor, gen: torch.Generator):
     normal_(t, gen, 0.02)
+
+
+@torch.no_grad()
+def draw_(model: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Draw a model's parameters as the reference's initializers do: its
+    ``embed`` and ``unembed`` normal 0.02, then every submodule's
+    ``reset_parameters(gen)``, in module order."""
+    embed_init_(model.embed, gen)
+    embed_init_(model.unembed, gen)
+    for mod in model.modules():
+        if hasattr(mod, "reset_parameters"):
+            mod.reset_parameters(gen)
+    return model
 
 
 # ---------------------------------------------------------------------------

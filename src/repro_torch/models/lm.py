@@ -1,22 +1,30 @@
-"""Decoder-only LM assembly (PyTorch port of ``repro.models.lm``) for the
-two block families this slice serves:
+"""Decoder-only LM assembly (PyTorch port of ``repro.models.lm``) for every
+registered family:
 
-  * ``attn`` — GQA transformer with a dense MLP, uniform layers
-    (llama3.2-3b, stablelm-3b, qwen2.5-3b, qwen3-32b);
-  * ``rwkv`` — RWKV6 time-mix/channel-mix, uniform layers (rwkv6-7b).
+  * ``attn`` — GQA transformer with a dense MLP or an MoE layer, uniform
+    layers (llama3.2-3b, stablelm-3b, qwen2.5-3b, qwen3-32b, the
+    phi-3-vision backbone; qwen2-moe-a2.7b, kimi-k2-1t-a32b);
+  * ``rwkv`` — RWKV6 time-mix/channel-mix, uniform layers (rwkv6-7b);
+  * hybrid — a repeating ``pattern`` of RG-LRU (``rec``) and windowed
+    attention layers plus a tail (recurrentgemma-2b).
+
+Encoder-decoder configs (whisper-small) live in ``models/encdec.py``;
+``init_params`` and ``params_from_numpy`` build either.
 
 The parameters are one ``LM`` module whose names follow the reference
 pytree (``embed``, ``unembed``, ``final_norm.scale``, ``ln0``, and per layer
-``blocks.<i>.ln1``, ``.attn.wq``, ``.mlp.w_up``, ``.tm.w_r``, ...); the
-reference's layer-stacked leaves with a leading ``L`` dimension become an
-``nn.ModuleList`` and its ``lax.scan`` over them a Python loop.
+``blocks.<i>.ln1``, ``.attn.wq``, ``.mlp.w_up``, ``.moe.experts.w_gate``,
+``.tm.w_r``, ...; a hybrid's ``blocks.repeat.p0_rec.<i>.rec.w_in`` and
+``blocks.tail.t0_rec.0.ln1.scale``).  The reference's stacked leaves with a
+leading layer (or repeat) dimension become ``nn.ModuleList``s and its
+``lax.scan`` over them a Python loop; inside a hybrid group the layers run
+in sorted name order, as the reference's ``for name in sorted(lps)``.
 ``forward`` (prefill trunk) and ``decode_one`` share the parameters.
 
-Prefill attention runs the K4 kernel on the card and RWKV's WKV scan the K5
-kernel; decode is plain PyTorch, as in the reference.  Hybrid patterns,
-MoE, modality frontends and encoder-decoder configs raise
-``NotImplementedError``: they come with later slices of the port
-(ROADMAP.md).  The decode caches are updated in place.
+Prefill attention runs the K4 kernel on the card (windowed on the hybrid)
+and RWKV's WKV scan the K5 kernel; decode, the MoE dispatch and the RG-LRU
+scan are plain PyTorch, as the reference leaves them to XLA.  The decode
+caches are updated in place.
 
 TF32 is off for float32 products and convolutions on the card (set here,
 for the whole process), so float32 logits match the CPU within float32
@@ -30,30 +38,14 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.models import rwkv6
+from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models.attention import (Attention, attention_block,
                                           attention_decode_block)
-from repro_torch.models.layers import (MLP, Norm, apply_norm, embed_init_,
-                                       mlp, param)
+from repro_torch.models.layers import MLP, Norm, apply_norm, draw_, mlp, param
+from repro_torch.models.moe import MoE, moe_block
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-_LATER = ("the rest of the LLM substrate in ROADMAP.md")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config this slice does not
-    serve, naming the slice of the port that brings it."""
-    missing = [what for what, on in (
-        ("hybrid layer patterns with windowed attention", bool(cfg.pattern)),
-        ("mixture-of-experts layers", cfg.moe is not None),
-        (f"the {cfg.frontend} frontend", bool(cfg.frontend)),
-        ("encoder-decoder models", cfg.enc_dec)) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} are not ported yet; they "
-            f"come with {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +53,8 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class AttnLayer(nn.Module):
+    """Attention, then a dense ``mlp`` or, for an MoE config, ``moe``."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, device)
@@ -69,8 +63,23 @@ class AttnLayer(nn.Module):
                               qk_norm=cfg.qk_norm, bias=cfg.bias,
                               device=device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, bias=cfg.bias,
-                       device=device)
+        if cfg.moe is not None:
+            self.moe = MoE(cfg.d_model, cfg.moe, dtype, cfg.act, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                           bias=cfg.bias, device=device)
+
+
+class RecLayer(nn.Module):
+    """An RG-LRU temporal block, then a dense MLP (no biases)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg.d_model, cfg.norm, device)
+        self.rec = rglru.RecurrentBlock(cfg.d_model, cfg.d_rnn or cfg.d_model,
+                                        dtype, device)
+        self.ln2 = Norm(cfg.d_model, cfg.norm, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device=device)
 
 
 class RWKVLayer(nn.Module):
@@ -82,17 +91,42 @@ class RWKVLayer(nn.Module):
         self.cm = rwkv6.ChannelMix(cfg.d_model, cfg.d_ff, dtype, device)
 
 
+def _hybrid_groups(cfg: ModelConfig):
+    """The reference's hybrid layout: ``({name: kind}`` of the repeating
+    groups, ``n_rep``, ``{name: kind}`` of the tail)."""
+    k = len(cfg.pattern)
+    n_rep, n_tail = cfg.n_layers // k, cfg.n_layers % k
+    return ({f"p{i}_{kind}": kind for i, kind in enumerate(cfg.pattern)},
+            n_rep, {f"t{i}_{cfg.pattern[i]}": cfg.pattern[i]
+                    for i in range(n_tail)})
+
+
 class LM(nn.Module):
     """The parameters of one decoder-only LM, allocated but not drawn
     (``init_params`` draws them, ``params_from_numpy`` loads them)."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        check_supported(cfg)
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder config: its "
+                             "parameters are models/encdec.py's EncDec")
         dtype = getattr(torch, cfg.dtype)
         self.embed = param((cfg.vocab, cfg.d_model), dtype, device)
         self.unembed = param((cfg.d_model, cfg.vocab), dtype, device)
         self.final_norm = Norm(cfg.d_model, cfg.norm, device)
+        if cfg.pattern:
+            groups, n_rep, tail = _hybrid_groups(cfg)
+
+            def stack(kind, n):
+                layer = RecLayer if kind == "rec" else AttnLayer
+                return nn.ModuleList(layer(cfg, dtype, device)
+                                     for _ in range(n))
+            self.blocks = nn.ModuleDict({"repeat": nn.ModuleDict(
+                {name: stack(kind, n_rep) for name, kind in groups.items()})})
+            if tail:
+                self.blocks["tail"] = nn.ModuleDict(
+                    {name: stack(kind, 1) for name, kind in tail.items()})
+            return
         layer = RWKVLayer if cfg.block == "rwkv" else AttnLayer
         self.blocks = nn.ModuleList(layer(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
@@ -102,31 +136,41 @@ class LM(nn.Module):
 
 @torch.no_grad()
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device="cuda") -> LM:
+                device="cuda"):
     """Random parameters as the reference's initializers draw them
-    (normal 0.02 embeddings, 1/sqrt(fan_in) weights, zero norms, RWKV's
-    constant decays), from ``generator``, on ``device``.  The generator may
-    live on the CPU or on the card (a CUDA generator draws full-width
-    weights in place, without a trip through host memory).  Not the numbers
-    of ``jax.random``: load the reference's with ``params_from_numpy`` to
-    compare the two."""
-    model = LM(cfg, resolve_device(device))
-    embed_init_(model.embed, generator)
-    embed_init_(model.unembed, generator)
-    for mod in model.modules():
-        if hasattr(mod, "reset_parameters"):
-            mod.reset_parameters(generator)
-    return model
+    (normal 0.02 embeddings, 1/sqrt(fan_in) weights, zero norms and
+    biases, RWKV's constant decays, RG-LRU's ``lambda_p`` of -1), from
+    ``generator``, on ``device``: an ``LM``, or an ``encdec.EncDec`` for an
+    encoder-decoder config.  The generator may live on the CPU or on the
+    card (a CUDA generator draws full-width weights in place, without a
+    trip through host memory).  Not the numbers of ``jax.random``: load the
+    reference's with ``params_from_numpy`` to compare the two."""
+    if cfg.enc_dec:
+        return encdec.init_params(generator, cfg, device)
+    return draw_(LM(cfg, resolve_device(device)), generator)
+
+
+def _split_at(path: tuple) -> int | None:
+    """Where a stacked leaf's layer index goes in its dotted name: after
+    ``blocks`` (``blocks.<i>.attn.wq``, ``enc.blocks.<i>...``), or after a
+    hybrid group's name (``blocks.repeat.p0_rec.<i>...``); None for a leaf
+    that is not stacked."""
+    if "blocks" not in path:
+        return None
+    i = path.index("blocks")
+    return i + 3 if path[i + 1] in ("repeat", "tail") else i + 1
 
 
 @torch.no_grad()
-def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> LM:
-    """The reference's ``lm.init_params`` pytree with numpy leaves
-    (``jax.tree.map(np.asarray, params)``) as the port's ``LM`` on
-    ``device``: each layer-stacked leaf is split along its leading ``L``
-    dimension into ``blocks.<i>``.  Every leaf must match one parameter by
-    name, shape and dtype, and every parameter must get one."""
-    model = LM(cfg, resolve_device(device))
+def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
+    """The reference's ``lm.init_params`` (or ``encdec.init_params``) pytree
+    with numpy leaves (``jax.tree.map(np.asarray, params)``) as the port's
+    ``LM`` (or ``EncDec``) on ``device``: each stacked leaf is split along
+    its leading layer (or repeat) dimension.  Every leaf must match one
+    parameter by name, shape and dtype, and every parameter must get
+    one."""
+    dev = resolve_device(device)
+    model = encdec.EncDec(cfg, dev) if cfg.enc_dec else LM(cfg, dev)
     state = {}
 
     def walk(node, path):
@@ -135,11 +179,12 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> LM:
                 walk(v, path + (k,))
             return
         a = np.asarray(node)
-        if path[0] == "blocks":
-            for i in range(cfg.n_layers):
-                state[".".join(("blocks", str(i)) + path[1:])] = a[i]
-        else:
+        cut = _split_at(path)
+        if cut is None:
             state[".".join(path)] = a
+            return
+        for i in range(a.shape[0]):
+            state[".".join(path[:cut] + (str(i),) + path[cut:])] = a[i]
 
     walk(tree, ())
     params = dict(model.named_parameters())
@@ -158,18 +203,51 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> LM:
     return model
 
 
+def _layers(params: LM, cfg: ModelConfig):
+    """(group, name, index, layer) of every layer in the order they run:
+    group None and name "attn"/"rwkv" for uniform stacks; a hybrid's
+    repeats, each group in sorted name order, then its tail."""
+    if not cfg.pattern:
+        for i, lp in enumerate(params.blocks):
+            yield None, cfg.block, i, lp
+        return
+    rep = params.blocks["repeat"]
+    for r in range(len(next(iter(rep.values())))):
+        for name in sorted(rep):
+            yield "repeat", name, r, rep[name][r]
+    if "tail" in params.blocks:
+        for name in sorted(params.blocks["tail"]):
+            yield "tail", name, 0, params.blocks["tail"][name][0]
+
+
 # ---------------------------------------------------------------------------
 # Layer applications
 # ---------------------------------------------------------------------------
 
+def _ffn(h, lp, cfg: ModelConfig):
+    """The layer's dense MLP or MoE: (y, aux loss)."""
+    if hasattr(lp, "moe"):
+        y, losses = moe_block(h, lp.moe, cfg.moe, cfg.act)
+        return y, losses["moe_aux"] + losses["moe_z"]
+    return mlp(h, lp.mlp, cfg.act), 0.0
+
+
 def _attn_layer_fwd(x, lp: AttnLayer, cfg: ModelConfig, q_chunk: int):
-    """One transformer layer over (B, S, D); returns (x', (k, v))."""
+    """One transformer layer over (B, S, D); returns (x', (k, v), aux)."""
     h = apply_norm(x, lp.ln1, cfg.norm)
     h, kv = attention_block(h, lp.attn, cfg, window=cfg.window,
                             q_chunk=q_chunk)
     x = x + h
-    h = apply_norm(x, lp.ln2, cfg.norm)
-    return x + mlp(h, lp.mlp, cfg.act), kv
+    h, aux = _ffn(apply_norm(x, lp.ln2, cfg.norm), lp, cfg)
+    return x + h, kv, aux
+
+
+def _rec_layer_fwd(x, lp: RecLayer, cfg: ModelConfig):
+    """One recurrent layer over (B, S, D) from zero state; returns
+    (x', {"h", "conv"}) with the state after the last token."""
+    h, st = rglru.recurrent_block(apply_norm(x, lp.ln1, cfg.norm), lp.rec)
+    x = x + h
+    return x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act), st
 
 
 def _rwkv_layer_fwd(x, lp: RWKVLayer, cfg: ModelConfig):
@@ -187,33 +265,41 @@ def _rwkv_layer_fwd(x, lp: RWKVLayer, cfg: ModelConfig):
     return x + h, {"tm_x": tmx, "wkv": wkv, "cm_x": cmx}
 
 
+def _layer_fwd(x, name: str, lp, cfg: ModelConfig, q_chunk: int):
+    """Any decoder layer: (x', its decode state, aux)."""
+    if name.endswith("rec"):
+        return (*_rec_layer_fwd(x, lp, cfg), 0.0)
+    if name == "rwkv":
+        return (*_rwkv_layer_fwd(x, lp, cfg), 0.0)
+    x, (k, v), aux = _attn_layer_fwd(x, lp, cfg, q_chunk)
+    return x, {"k": k, "v": v}, aux
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill trunk)
 # ---------------------------------------------------------------------------
 
 def forward(params: LM, cfg: ModelConfig, x, q_chunk: int = 512):
-    """x: (B, S, D) embeddings -> (hidden (B,S,D), aux_loss), aux_loss 0
-    (no MoE)."""
+    """x: (B, S, D) embeddings -> (hidden (B,S,D), aux_loss), the MoE
+    layers' load-balance and z losses summed (0 without MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block == "rwkv":
         x = apply_norm(x, params.ln0, cfg.norm)
-    for lp in params.blocks:
-        if cfg.block == "rwkv":
-            x, _ = _rwkv_layer_fwd(x, lp, cfg)
-        else:
-            x, _ = _attn_layer_fwd(x, lp, cfg, q_chunk)
-    x = apply_norm(x, params.final_norm, cfg.norm)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    for _, name, _, lp in _layers(params, cfg):
+        x, _, a = _layer_fwd(x, name, lp, cfg, q_chunk)
+        aux = aux + a
+    return apply_norm(x, params.final_norm, cfg.norm), aux
 
 
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params: LM, cfg: ModelConfig, tokens):
+def embed_tokens(params, cfg: ModelConfig, tokens):
     return params.embed[tokens]
 
 
-def logits_fn(params: LM, cfg: ModelConfig, hidden):
+def logits_fn(params, cfg: ModelConfig, hidden):
     return hidden @ params.unembed
 
 
@@ -221,16 +307,54 @@ def logits_fn(params: LM, cfg: ModelConfig, hidden):
 # Decode caches, prefill and decode
 # ---------------------------------------------------------------------------
 
+def flat_cache(tree, prefix: str = "") -> dict:
+    """{dotted key: tensor} of a decode cache, whose hybrid and
+    encoder-decoder forms nest dicts."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in flat_cache(v, f"{prefix}{k}.").items()}
+    return {prefix[:-1]: tree}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Decode-time state of one model, zeros: attention caches
-    ``{"k", "v"}`` of (L, B, max_len, K, hd), or RWKV states
-    ``{"tm_x", "wkv", "cm_x"}``."""
-    check_supported(cfg)
+    """Decode-time state of one decoder-only model, zeros: attention caches
+    ``{"k", "v"}`` of (L, B, max_len, K, hd), RWKV states
+    ``{"tm_x", "wkv", "cm_x"}``, or a hybrid's ``{"repeat": {name: ...},
+    "tail": {name: ...}}`` of RG-LRU states ``{"h", "conv"}`` and attention
+    ring buffers of ``min(window, max_len)`` slots, stacked over repeats.
+    Encoder-decoder caches are ``encdec.init_cache``'s."""
+    if cfg.enc_dec:
+        raise ValueError(f"{cfg.name}: encoder-decoder caches come from "
+                         "encdec.init_cache")
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    L = cfg.n_layers
+
+    def attn_cache(n, length):
+        shape = (n, batch, length, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    def rec_state(n):
+        dr = cfg.d_rnn or cfg.d_model
+        f32 = torch.float32
+        return {"h": torch.zeros((n, batch, dr), dtype=f32, device=dev),
+                "conv": torch.zeros((n, batch, rglru.CONV_W - 1, dr),
+                                    dtype=f32, device=dev)}
+
+    if cfg.pattern:
+        groups, n_rep, tail = _hybrid_groups(cfg)
+        length = min(cfg.window or max_len, max_len)
+
+        def state(kind, n):
+            return rec_state(n) if kind == "rec" else attn_cache(n, length)
+        cache = {"repeat": {name: state(kind, n_rep)
+                            for name, kind in groups.items()}}
+        if tail:
+            cache["tail"] = {name: state(kind, 1)
+                             for name, kind in tail.items()}
+        return cache
     if cfg.block == "rwkv":
-        N = cfg.rwkv_head_size
+        N, L = cfg.rwkv_head_size, cfg.n_layers
         return {
             "tm_x": torch.zeros((L, batch, cfg.d_model), dtype=dtype,
                                 device=dev),
@@ -239,36 +363,53 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
             "cm_x": torch.zeros((L, batch, cfg.d_model), dtype=dtype,
                                 device=dev),
         }
-    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    return attn_cache(cfg.n_layers, max_len)
+
+
+def _ring_pack(k, window: int):
+    """Pack the last ``window`` entries of (B, S, K, hd) into ring-slot
+    order: slot j holds the most recent position p < S with p % window ==
+    j, zeros where there is none."""
+    S = k.shape[1]
+    j = torch.arange(window, device=k.device)
+    p = S - 1 - torch.remainder(S - 1 - j, window)
+    ring = k[:, torch.clamp(p, 0, S - 1)]
+    return torch.where((p >= 0)[None, :, None, None], ring,
+                       torch.zeros((), dtype=k.dtype, device=k.device))
 
 
 def prefill(params: LM, cfg: ModelConfig, x, extra_len: int = 0,
             q_chunk: int = 512):
     """Run the trunk over a prompt and build the decode cache.
 
-    x: (B, S, D) embeddings.  Returns (hidden (B,S,D), cache) where
-    attention caches have length S + extra_len (room for decode)."""
+    x: (B, S, D) embeddings.  Returns (hidden (B,S,D), cache): attention
+    caches of length S + extra_len (room for decode), a hybrid's windowed
+    layers as ``window``-slot ring buffers, recurrent states after the
+    prompt."""
     if cfg.block == "rwkv":
-        return _prefill_rwkv(params, cfg, x)
-    B, S, _ = x.shape
-    cache = init_cache(cfg, B, S + extra_len, x.device)
-    for i, lp in enumerate(params.blocks):
-        x, (k, v) = _attn_layer_fwd(x, lp, cfg, q_chunk)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-    return apply_norm(x, params.final_norm, cfg.norm), cache
-
-
-def _prefill_rwkv(params: LM, cfg: ModelConfig, x):
-    x = apply_norm(x, params.ln0, cfg.norm)
-    states = []
-    for lp in params.blocks:
-        x, st = _rwkv_layer_fwd(x, lp, cfg)
-        states.append(st)
-    cache = {k: torch.stack([st[k] for st in states])
-             for k in ("tm_x", "wkv", "cm_x")}
+        x = apply_norm(x, params.ln0, cfg.norm)
+    if not cfg.pattern and cfg.block == "attn":
+        B, S, _ = x.shape
+        cache = init_cache(cfg, B, S + extra_len, x.device)
+        for _, name, i, lp in _layers(params, cfg):
+            x, st, _ = _layer_fwd(x, name, lp, cfg, q_chunk)
+            cache["k"][i, :, :S] = st["k"]
+            cache["v"][i, :, :S] = st["v"]
+        return apply_norm(x, params.final_norm, cfg.norm), cache
+    states = {}
+    for group, name, _, lp in _layers(params, cfg):
+        x, st, _ = _layer_fwd(x, name, lp, cfg, q_chunk)
+        if "k" in st:
+            st = {k: _ring_pack(a, cfg.window) for k, a in st.items()}
+        states.setdefault((group, name), []).append(st)
+    stacked = {key: {k: torch.stack([st[k] for st in sts])
+                     for k in sts[0]} for key, sts in states.items()}
+    if cfg.pattern:
+        cache = {}
+        for (group, name), st in stacked.items():
+            cache.setdefault(group, {})[name] = st
+    else:
+        cache = stacked[(None, "rwkv")]
     return apply_norm(x, params.final_norm, cfg.norm), cache
 
 
@@ -277,8 +418,18 @@ def _attn_layer_decode(x, lp: AttnLayer, cfg, cache, pos, window):
     h, cache = attention_decode_block(h, lp.attn, cfg, cache, pos,
                                       window=window)
     x = x + h
-    h = apply_norm(x, lp.ln2, cfg.norm)
-    return x + mlp(h, lp.mlp, cfg.act), cache
+    h, _ = _ffn(apply_norm(x, lp.ln2, cfg.norm), lp, cfg)
+    return x + h, cache
+
+
+def _rec_layer_decode(x, lp: RecLayer, cfg, state):
+    """One token through a recurrent layer; ``state`` updated in place."""
+    hn = apply_norm(x[:, 0, :], lp.ln1, cfg.norm)
+    y, new = rglru.recurrent_block_step(hn, lp.rec, state)
+    for k, a in new.items():
+        state[k].copy_(a)
+    x = x + y[:, None, :]
+    return x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act)
 
 
 def decode_one(params: LM, cfg: ModelConfig, x, cache, pos: int):
@@ -286,9 +437,13 @@ def decode_one(params: LM, cfg: ModelConfig, x, cache, pos: int):
     cache), the cache updated in place."""
     if cfg.block == "rwkv":
         return _decode_rwkv(params, cfg, x, cache)
-    for i, lp in enumerate(params.blocks):
-        c_l = {"k": cache["k"][i], "v": cache["v"][i]}     # views: in place
-        x, _ = _attn_layer_decode(x, lp, cfg, c_l, pos, cfg.window)
+    for group, name, i, lp in _layers(params, cfg):
+        c = cache if group is None else cache[group][name]
+        c_l = {k: a[i] for k, a in c.items()}               # views: in place
+        if name.endswith("rec"):
+            x = _rec_layer_decode(x, lp, cfg, c_l)
+        else:
+            x, _ = _attn_layer_decode(x, lp, cfg, c_l, pos, cfg.window)
     return apply_norm(x, params.final_norm, cfg.norm), cache
 
 

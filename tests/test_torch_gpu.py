@@ -503,6 +503,85 @@ def test_gpu_flash_attention_refuses_other_forms():
         fa_ops.flash_attention(q, q[:, :, :3], q[:, :, :3])
 
 
+def _k4_case(g, dev, dtype, S, T, hd, G, K=2, B=2):
+    """q, k, v as views of one packed qkv projection, as the model makes
+    them."""
+    H = K * G
+    qkv = torch.randn(B, max(S, T), H + 2 * K, hd, generator=g, device=dev,
+                      dtype=torch.float32).to(dtype)
+    return qkv[:, :S, :H], qkv[:, :T, H:H + K], qkv[:, :T, H + K:]
+
+
+def _k4_check(q, k, v, causal, off, window, route, tol):
+    before = fa_ops.route_launches[route]
+    got = fa_ops.flash_attention(q, k, v, causal, off, window)
+    torch.cuda.synchronize()
+    want = attention_ref(q, k, v, causal, off, window)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, (tuple(q.shape), tuple(k.shape), causal, off, window,
+                        err)
+    assert fa_ops.route_launches[route] == before + 1, route
+
+
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.bfloat16, 64), (torch.bfloat16, 128), (torch.bfloat16, 256),
+    (torch.float32, 64), (torch.float32, 256)])
+def test_gpu_flash_attention_window_matches_plain(dtype, hd):
+    """K4 with a local-attention window on both routes against its plain
+    version: windows of 1, 7, 64, 127, 128, 129 and 2048 keys, causal and
+    not, at ragged S and T, a causal q_offset, and recurrentgemma's S 4096
+    at window 2048 (MQA, 10 query heads).  float32 within 2e-5, bf16
+    within 2e-2; bf16 at hd 64/128 on the tensor cores, hd 256 and float32
+    on the CUDA cores."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(6)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    route = ("tensor_cores" if dtype == torch.bfloat16 and hd <= 128
+             else "cuda_cores")
+    cases = [(S, S, G, causal, 0, w) for S, G in ((200, 3), (129, 1))
+             for w in (1, 7, 64, 127, 128, 129) for causal in (True, False)]
+    cases += [(100, 612, 3, True, 512, 64), (333, 333, 8, True, 0, 2048)]
+    for S, T, G, causal, off, w in cases:
+        q, k, v = _k4_case(g, dev, dtype, S, T, hd, G)
+        _k4_check(q, k, v, causal, off, w, route, tol)
+    if dtype == torch.bfloat16:
+        q, k, v = _k4_case(g, dev, dtype, 4096, 4096, hd, 10, K=1, B=1)
+        _k4_check(q, k, v, True, 0, 2048, route, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [96, 112, 256])
+def test_gpu_flash_attention_new_head_widths(dtype, hd):
+    """K4 at phi-3-vision's 96, kimi-k2's 112 (bf16: the tensor cores, the
+    head padded to 128 by TMA's zero fill) and recurrentgemma's 256 (the
+    CUDA cores), causal and not, ragged S, GQA groups 1, 3 and 10."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(hd)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    route = ("tensor_cores" if dtype == torch.bfloat16 and hd <= 128
+             else "cuda_cores")
+    for S, G in ((1, 1), (24, 3), (129, 10), (1000, 3)):
+        for causal in (True, False):
+            q, k, v = _k4_case(g, dev, dtype, S, S, hd, G)
+            _k4_check(q, k, v, causal, 0, 0, route, tol)
+    q, k, v = _k4_case(g, dev, dtype, 100, 612, hd, 3)
+    _k4_check(q, k, v, True, 512, 0, route, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_flash_attention_cross_ragged(dtype):
+    """K4 non-causal at S != T with ragged T, whisper's shapes at hd 64: the
+    cross-attention (64 queries over 1500 frames), the encoder (1500 x
+    1500), and a few odd ones (1 x 1500, 37 x 611, 300 x 7)."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(8)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    route = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    for S, T in ((64, 1500), (1500, 1500), (1, 1500), (37, 611), (300, 7)):
+        q, k, v = _k4_case(g, dev, dtype, S, T, 64, 1, K=12)
+        _k4_check(q, k, v, False, 0, 0, route, tol)
+
+
 def test_gpu_wkv_matches_plain():
     """K5 against the exact recurrence over the clip range of logw, from a
     nonzero state: y and final state within 1e-4 of the largest
@@ -598,6 +677,49 @@ def test_gpu_lm_serving_matches_cpu(name):
         for key in cb:
             assert torch.allclose(ca[key].cpu(), cb[key], rtol=1e-4,
                                   atol=1e-4), (i, key)
+        nxt = torch.argmax(lb, -1)[:, None]
+        (la, ca), (lb, cb) = dec(card, ca, nxt.to(dev), 24 + i), \
+            dec(cpu, cb, nxt, 24 + i)
+
+
+FAMILIES = ("qwen2-moe-a2.7b", "kimi-k2-1t-a32b", "recurrentgemma-2b",
+            "phi-3-vision-4.2b", "whisper-small")
+
+
+@pytest.mark.parametrize("name,dtype", [
+    (n, d) for n in FAMILIES for d in ("float32", "bfloat16")
+    # a bf16 rounding difference can flip an MoE top-k choice
+    if d == "float32" or get_config(n).moe is None])
+def test_gpu_lm_families_match_cpu(name, dtype):
+    """Prefill (K4 on the card; recurrentgemma at window 8, so the band and
+    the ring buffer act) and 8 greedy decode steps at ``.reduced()``
+    width, from the same parameters and inputs (``launch.serve.
+    prefill_batch``: tokens, stub-frontend embeddings, whisper's frames):
+    logits and every cache leaf within 1e-4 of the CPU's (plain versions)
+    in float32, within 5e-2 of the largest magnitude in bf16."""
+    from repro_torch.launch.serve import prefill_batch
+    dev = _cuda()
+    kw = {"window": 8} if name == "recurrentgemma-2b" else {}
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype, **kw)
+    cpu = lm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = lm.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    ba, bb = (prefill_batch(cfg, 2, 24, 30, d) for d in (dev, "cpu"))
+    pre, dec = steps.make_prefill_step(cfg, q_chunk=16, extra_len=8), \
+        steps.make_decode_step(cfg)
+    (la, ca), (lb, cb) = pre(card, ba), pre(cpu, bb)
+
+    def ok(a, b):
+        a, b = a.cpu().float(), b.float()
+        if dtype == "float32":
+            return torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+        return (a - b).abs().max() <= 5e-2 * b.abs().max()
+    for i in range(9):
+        assert ok(la, lb), (i, "logits")
+        want = lm.flat_cache(cb)
+        for key, a in lm.flat_cache(ca).items():
+            assert ok(a, want[key]), (i, key)
+        if i == 8:
+            break
         nxt = torch.argmax(lb, -1)[:, None]
         (la, ca), (lb, cb) = dec(card, ca, nxt.to(dev), 24 + i), \
             dec(cpu, cb, nxt, 24 + i)

@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
-           os.path.join(ROOT, "examples", "train_gnn_outofcore_torch.py")]
+           os.path.join(ROOT, "examples", "train_gnn_outofcore_torch.py"),
+           os.path.join(ROOT, "examples", "serve_decode_torch.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -53,6 +54,9 @@ def test_port_sources_exist():
     srcs = _sources()
     assert os.path.exists(srcs[0]), "chip_smoke.py is missing"
     assert os.path.exists(srcs[1]), "the port's trainer example is missing"
+    assert os.path.exists(srcs[2]), "the port's serving example is missing"
+    for mod in ("moe", "rglru", "encdec", "frontends"):
+        assert os.path.join(PORT, "models", f"{mod}.py") in srcs, mod
     assert len(srcs) > 20
 
 
@@ -219,3 +223,34 @@ def test_lm_entry_points_default_to_the_card():
         lm.init_cache(cfg, 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "rwkv6-7b"])
+
+
+def test_lm_family_entry_points_default_to_the_card():
+    """Every family's parameters, caches, frontend, launcher and the
+    serving example refuse to run quietly on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib.util
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, frontends, lm
+    for name in ("qwen2-moe-a2.7b", "recurrentgemma-2b",
+                 "phi-3-vision-4.2b", "whisper-small"):
+        cfg = get_config(name).reduced()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init_params(torch.Generator(), cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", name])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_cache(get_config("recurrentgemma-2b").reduced(), 2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encdec.init_cache(get_config("whisper-small").reduced(), 2, 8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        frontends.init_frontend(torch.Generator(), 8, torch.float32)
+    spec = importlib.util.spec_from_file_location(
+        "serve_decode_torch",
+        os.path.join(ROOT, "examples", "serve_decode_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(["--arch", "kimi-k2-1t-a32b"])

@@ -27,42 +27,17 @@ from repro.configs import SHAPES as REF_SHAPES  # noqa: E402
 from repro.configs import get_config as ref_config  # noqa: E402
 from repro.configs import list_configs as ref_list  # noqa: E402
 from repro.models import attention as ref_attn  # noqa: E402
+from repro.models import encdec as ref_encdec  # noqa: E402
 from repro.models import layers as ref_layers  # noqa: E402
 from repro.models import lm as ref_lm  # noqa: E402
 from repro.models import rwkv6 as ref_rwkv  # noqa: E402
-from repro.models import steps as ref_steps  # noqa: E402
 from repro_torch.configs import SHAPES, get_config, list_configs  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import attention, layers, lm, rwkv6, steps  # noqa: E402
+from repro_torch.models import attention, encdec, layers, lm, rwkv6  # noqa: E402
+from lm_ref_compare import (close, configs, f32, flat,  # noqa: E402
+                            prefill_decode, t)
 
-SERVED = ("llama3.2-3b", "stablelm-3b", "qwen2.5-3b", "rwkv6-7b")
-UNSERVED = ("kimi-k2-1t-a32b", "phi-3-vision-4.2b", "qwen2-moe-a2.7b",
-            "recurrentgemma-2b", "whisper-small")
-
-
-def _f32(a):
-    return np.asarray(a, np.float32)
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def _close(got, want, dtype="float32", what=""):
-    got = got.float().numpy() if isinstance(got, torch.Tensor) else _f32(got)
-    want = _f32(want)
-    assert got.shape == want.shape, what
-    if dtype == "float32":
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
-                                   err_msg=what)
-    else:
-        err = np.abs(got - want).max()
-        assert err <= 5e-2 * max(np.abs(want).max(), 1e-6), (what, err)
-
-
-def _configs(name, dtype):
-    return (dataclasses.replace(ref_config(name).reduced(), dtype=dtype),
-            dataclasses.replace(get_config(name).reduced(), dtype=dtype))
+SERVED = tuple(list_configs())
 
 
 # ---------------------------------------------------------------------------
@@ -84,15 +59,6 @@ def test_config_registry_matches_reference():
                 assert port.moe.e_pad == ref.moe.e_pad
 
 
-@pytest.mark.parametrize("name", UNSERVED)
-def test_unserved_families_raise(name):
-    cfg = get_config(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        lm.init_params(torch.Generator(), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.make_prefill_step(cfg)
-
-
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -104,12 +70,12 @@ def test_norms_rope_mlp_match_reference(act, bias):
     x = rng.normal(size=(2, 5, 16)).astype(np.float32)
     scale = rng.normal(size=16).astype(np.float32) * 0.1
     b = rng.normal(size=16).astype(np.float32) * 0.1
-    _close(layers.rmsnorm(_t(x), _t(scale)), ref_layers.rmsnorm(x, scale))
-    _close(layers.layernorm(_t(x), _t(scale), _t(b)),
+    close(layers.rmsnorm(t(x), t(scale)), ref_layers.rmsnorm(x, scale))
+    close(layers.layernorm(t(x), t(scale), t(b)),
            ref_layers.layernorm(x, scale, b))
     q = rng.normal(size=(2, 5, 3, 8)).astype(np.float32)
     pos = np.arange(5)[None, :] + 7
-    _close(layers.apply_rope(_t(q), _t(pos), 10000.0),
+    close(layers.apply_rope(t(q), t(pos), 10000.0),
            ref_layers.apply_rope(q, pos, 10000.0))
     ref_p = ref_layers.init_mlp(jax.random.key(1), 16, 32, act, jnp.float32,
                                 bias=bias)
@@ -118,9 +84,28 @@ def test_norms_rope_mlp_match_reference(act, bias):
     port_p = layers.MLP(16, 32, act, torch.float32, bias=bias)
     with torch.no_grad():
         for k, v in ref_p.items():
-            getattr(port_p, k).copy_(_t(_f32(v)))
-    _close(layers.mlp(_t(x), port_p, act), ref_layers.mlp(x, ref_p, act),
+            getattr(port_p, k).copy_(t(f32(v)))
+    close(layers.mlp(t(x), port_p, act), ref_layers.mlp(x, ref_p, act),
            what=act)
+
+
+def test_normal_draws_large_tensors_in_slices(monkeypatch):
+    """Above ``DRAW_CHUNK`` elements a parameter is drawn slice by slice
+    along its first axis (kimi-k2's experts would need 2 x 21 GiB of
+    float32 beside the model otherwise): the numbers are the generator's
+    successive draws of each slice, scaled, and a small tensor is one
+    draw, as before."""
+    monkeypatch.setattr(layers, "DRAW_CHUNK", 12)
+    big = torch.empty(7, 5)
+    layers.normal_(big, torch.Generator().manual_seed(3), 0.5)
+    g = torch.Generator().manual_seed(3)
+    want = torch.cat([torch.randn((2, 5), generator=g) for _ in range(3)]
+                     + [torch.randn((1, 5), generator=g)]) * 0.5
+    assert torch.equal(big, want)
+    small = torch.empty(2, 5)
+    layers.normal_(small, torch.Generator().manual_seed(3), 0.5)
+    assert torch.equal(small, torch.randn(
+        (2, 5), generator=torch.Generator().manual_seed(3)) * 0.5)
 
 
 # ---------------------------------------------------------------------------
@@ -139,10 +124,10 @@ def test_attend_plain_matches_reference(causal, window, q_offset, T, probs):
     k = rng.normal(size=(2, T, 2, 8)).astype(np.float32)
     v = rng.normal(size=(2, T, 2, 8)).astype(np.float32)
     kw = dict(causal=causal, window=window, q_chunk=16, q_offset=q_offset)
-    got = attention.attend(_t(q), _t(k), _t(v), probs_dtype=getattr(
+    got = attention.attend(t(q), t(k), t(v), probs_dtype=getattr(
         torch, probs), **kw)
     want = ref_attn.attend(q, k, v, probs_dtype=jnp.dtype(probs), **kw)
-    _close(got, want, probs)
+    close(got, want, probs)
 
 
 @pytest.mark.parametrize("window", [0, 6])
@@ -157,7 +142,7 @@ def test_attention_blocks_match_reference(window):
         jax.random.key(2), cfg_r.d_model, cfg_r.n_heads, cfg_r.n_kv_heads,
         cfg_r.head_dim, jnp.float32, qkv_bias=True, qk_norm=True)
     rng = np.random.default_rng(3)
-    ref_p = {k: _f32(v) + (0.1 * rng.normal(size=v.shape).astype(np.float32)
+    ref_p = {k: f32(v) + (0.1 * rng.normal(size=v.shape).astype(np.float32)
                            if not k.startswith("w") else 0)
              for k, v in ref_p.items()}
     port_p = attention.Attention(cfg_p.d_model, cfg_p.n_heads,
@@ -165,15 +150,15 @@ def test_attention_blocks_match_reference(window):
                                  torch.float32, qkv_bias=True, qk_norm=True)
     with torch.no_grad():
         for k, v in ref_p.items():
-            getattr(port_p, k).copy_(_t(v))
+            getattr(port_p, k).copy_(t(v))
     S, T = 10, window or 16
     x = rng.normal(size=(2, S, cfg_r.d_model)).astype(np.float32)
-    got, (pk, pv) = attention.attention_block(_t(x), port_p, cfg_p,
+    got, (pk, pv) = attention.attention_block(t(x), port_p, cfg_p,
                                               window=window, q_chunk=4)
     want, (rk, rv) = ref_attn.attention_block(x, ref_p, cfg_r, window=window,
                                               q_chunk=4)
-    _close(got, want)
-    _close(pk, rk)
+    close(got, want)
+    close(pk, rk)
     shape = (2, T, cfg_r.n_kv_heads, cfg_r.head_dim)
     rc = {"k": jnp.zeros(shape), "v": jnp.zeros(shape)}
     pc = {"k": torch.zeros(shape), "v": torch.zeros(shape)}
@@ -181,10 +166,10 @@ def test_attention_blocks_match_reference(window):
         xt = rng.normal(size=(2, 1, cfg_r.d_model)).astype(np.float32)
         want, rc = ref_attn.attention_decode_block(xt, ref_p, cfg_r, rc, pos,
                                                    window=window)
-        got, pc = attention.attention_decode_block(_t(xt), port_p, cfg_p, pc,
+        got, pc = attention.attention_decode_block(t(xt), port_p, cfg_p, pc,
                                                    pos, window=window)
-        _close(got, want, what=f"pos {pos}")
-        _close(pc["v"], rc["v"])
+        close(got, want, what=f"pos {pos}")
+        close(pc["v"], rc["v"])
 
 
 # ---------------------------------------------------------------------------
@@ -197,10 +182,10 @@ def _rwkv_params(seed, D):
                                        jnp.float32)
     rng = np.random.default_rng(seed)
     # move the zero-initialised mixes and norms off zero so they count
-    ref_tm = {k: _f32(v) + (0.1 * rng.normal(size=v.shape).astype(np.float32)
+    ref_tm = {k: f32(v) + (0.1 * rng.normal(size=v.shape).astype(np.float32)
                             if k in ("mu_x", "ln_x_scale", "ln_x_bias")
                             else 0) for k, v in ref_tm.items()}
-    ref_cm = {k: _f32(v) + (0.1 * rng.normal(size=v.shape).astype(np.float32)
+    ref_cm = {k: f32(v) + (0.1 * rng.normal(size=v.shape).astype(np.float32)
                             if k.startswith("mu") else 0)
               for k, v in ref_cm.items()}
     tm, cm = rwkv6.TimeMix(D, torch.float32), rwkv6.ChannelMix(D, 2 * D,
@@ -208,7 +193,7 @@ def _rwkv_params(seed, D):
     with torch.no_grad():
         for mod, tree in ((tm, ref_tm), (cm, ref_cm)):
             for k, v in tree.items():
-                getattr(mod, k).copy_(_t(v))
+                getattr(mod, k).copy_(t(v))
     return (ref_tm, ref_cm), (tm, cm)
 
 
@@ -223,76 +208,49 @@ def test_rwkv_blocks_match_reference(T):
     xp = rng.normal(size=(B, D)).astype(np.float32)
     s0 = rng.normal(size=(B, D // N, N, N)).astype(np.float32)
     want, (rxl, rs) = ref_rwkv.time_mix(x, ref_tm, N, xp, s0)
-    got, (pxl, ps) = rwkv6.time_mix(_t(x), tm, N, _t(xp), _t(s0))
-    _close(got, want)
-    _close(pxl, rxl)
-    _close(ps, rs)
+    got, (pxl, ps) = rwkv6.time_mix(t(x), tm, N, t(xp), t(s0))
+    close(got, want)
+    close(pxl, rxl)
+    close(ps, rs)
     want, rxl = ref_rwkv.channel_mix(x, ref_cm, xp)
-    got, pxl = rwkv6.channel_mix(_t(x), cm, _t(xp))
-    _close(got, want)
+    got, pxl = rwkv6.channel_mix(t(x), cm, t(xp))
+    close(got, want)
     for _ in range(3):
         xt = rng.normal(size=(B, D)).astype(np.float32)
         want, (rxl, rs) = ref_rwkv.time_mix_step(xt, ref_tm, N, rxl, rs)
-        got, (pxl, ps) = rwkv6.time_mix_step(_t(xt), tm, N, pxl, ps)
-        _close(got, want)
-        _close(ps, rs)
+        got, (pxl, ps) = rwkv6.time_mix_step(t(xt), tm, N, pxl, ps)
+        close(got, want)
+        close(ps, rs)
         want, _ = ref_rwkv.channel_mix_step(xt, ref_cm, rxl)
-        got, _ = rwkv6.channel_mix_step(_t(xt), cm, pxl)
-        _close(got, want)
+        got, _ = rwkv6.channel_mix_step(t(xt), cm, pxl)
+        close(got, want)
 
 
 # ---------------------------------------------------------------------------
 # lm + steps: prefill and decode against the reference
 # ---------------------------------------------------------------------------
 
-def _leaves(cache):
-    return {k: cache[k] for k in sorted(cache)}
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", SERVED)
-def test_prefill_decode_match_reference(name, dtype):
+@pytest.mark.parametrize("name,dtype", [
+    (name, dtype) for name in SERVED for dtype in ("float32", "bfloat16")])
+def test_prefill_decode_match_reference(name, dtype, monkeypatch):
     """Prefill logits and cache, then 4 greedy decode steps (logits and
-    cache after each), at ``.reduced()`` widths."""
-    cfg_r, cfg_p = _configs(name, dtype)
-    params = ref_lm.init_params(jax.random.key(0), cfg_r)
-    model = lm.params_from_numpy(jax.tree.map(np.asarray, params), cfg_p,
-                                 device="cpu")
-    B, P, N = 2, 24, 4
-    tok = np.random.default_rng(1).integers(0, cfg_r.vocab, (B, P))
-    rl, rc = jax.jit(ref_steps.make_prefill_step(cfg_r, q_chunk=16,
-                                                 extra_len=N))(
-        params, {"tokens": jnp.asarray(tok, jnp.int32)})
-    pl, pc = steps.make_prefill_step(cfg_p, q_chunk=16, extra_len=N)(
-        model, {"tokens": _t(tok)})
-    assert pl.dtype == getattr(torch, dtype)
-    _close(pl, rl, dtype, "prefill logits")
-    assert sorted(pc) == sorted(rc)
-    for k in pc:
-        _close(pc[k], rc[k], dtype, f"prefill cache {k}")
-    ref_dec = jax.jit(ref_steps.make_decode_step(cfg_r))
-    port_dec = steps.make_decode_step(cfg_p)
-    for i in range(N):
-        nxt = np.asarray(jnp.argmax(rl, -1))[:, None]
-        rl, rc = ref_dec(params, rc, jnp.asarray(nxt, jnp.int32),
-                         jnp.int32(P + i))
-        pl, pc = port_dec(model, pc, _t(nxt), P + i)
-        _close(pl, rl, dtype, f"decode {i} logits")
-        for k in pc:
-            _close(pc[k], rc[k], dtype, f"decode {i} cache {k}")
+    cache after each), at ``.reduced()`` widths, for every registered
+    config (``lm_ref_compare.prefill_decode``; MoE configs in bf16 on the
+    reference's routing)."""
+    prefill_decode(name, dtype, 4, monkeypatch=monkeypatch)
 
 
 @pytest.mark.parametrize("name", ["llama3.2-3b", "rwkv6-7b"])
 def test_forward_matches_reference(name):
-    cfg_r, cfg_p = _configs(name, "float32")
+    cfg_r, cfg_p = configs(name, "float32")
     params = ref_lm.init_params(jax.random.key(4), cfg_r)
     model = lm.params_from_numpy(jax.tree.map(np.asarray, params), cfg_p,
                                  device="cpu")
     x = np.random.default_rng(5).normal(
         size=(2, 20, cfg_r.d_model)).astype(np.float32)
     want, _ = ref_lm.forward(params, cfg_r, x, q_chunk=8)
-    got, aux = lm.forward(model, cfg_p, _t(x), q_chunk=8)
-    _close(got, want)
+    got, aux = lm.forward(model, cfg_p, t(x), q_chunk=8)
+    close(got, want)
     assert float(aux) == 0.0
 
 
@@ -323,7 +281,7 @@ def test_init_params_layout_matches_reference(name):
 
 
 def test_params_from_numpy_rejects_a_mismatched_tree():
-    cfg_r, cfg_p = _configs("llama3.2-3b", "float32")
+    cfg_r, cfg_p = configs("llama3.2-3b", "float32")
     tree = jax.tree.map(np.asarray, ref_lm.init_params(jax.random.key(0),
                                                        cfg_r))
     bad = dict(tree, extra=np.zeros(3, np.float32))
@@ -334,18 +292,25 @@ def test_params_from_numpy_rejects_a_mismatched_tree():
                              device="cpu")
 
 
-@pytest.mark.parametrize("name", ["llama3.2-3b", "rwkv6-7b"])
+@pytest.mark.parametrize("name", SERVED)
 def test_init_cache_matches_reference_shapes(name):
+    """Every leaf of the decode cache, nested for the hybrid (ring buffers
+    of min(window, max_len) slots) and whisper (self and cross caches)."""
     cfg_r, cfg_p = ref_config(name).reduced(), get_config(name).reduced()
-    want = ref_lm.init_cache(cfg_r, 3, 40)
-    got = lm.init_cache(cfg_p, 3, 40, device="cpu")
+    if cfg_r.enc_dec:
+        want = ref_encdec.init_cache(cfg_r, 3, 40, 11)
+        got = encdec.init_cache(cfg_p, 3, 40, 11, device="cpu")
+    else:
+        want = ref_lm.init_cache(cfg_r, 3, 40)
+        got = lm.init_cache(cfg_p, 3, 40, device="cpu")
+    want, got = flat(want), flat(got)
     assert sorted(got) == sorted(want)
     for k in got:
-        assert tuple(got[k].shape) == want[k].shape
+        assert tuple(got[k].shape) == want[k].shape, k
         assert str(got[k].dtype).removeprefix("torch.") == str(want[k].dtype)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", SERVED)
 def test_serve_launcher_runs_on_the_cpu(arch, capsys):
     tok = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                       "--prompt-len", "8", "--tokens", "3"])

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one card: GNN inference serving (K1-K3),
 scale-out (a remote-tier cache, a dead peer, a serving fleet; K1-K3),
-out-of-core GNN training (K1, K2/K3 forward and backward) and LM
-serving of every registered family, prefill then greedy decode (K4, K5).
+out-of-core GNN training (K1, K2/K3 forward and backward), LM serving of
+every registered family, prefill then greedy decode (K4, K5), and the LM
+train step (K4 forward and backward) at full width.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
@@ -168,12 +169,45 @@ failure raises and the script exits non-zero:
                each prefill.  The MoE configs' bf16 card runs take the
                CPU's routing (``RoutingReplay``: a rounding difference can
                flip a top-k choice), so the bf16 path after the router is
-               compared; the card's own flips are counted.
+               compared; the card's own flips are counted;
+  9. lm_train — a. K4's backward (``flash_attention_bwd``) against
+               autograd through its plain version on the card, bf16 and
+               float32, at llama3.2-3b's training layer (q (1, 4096, 24,
+               128), kv 8 heads, causal), whisper's cross-attention (64
+               over 1500 frames, non-causal), recurrentgemma's window
+               (hd 256, MQA, window 2048, S 4096) and a ragged hd-8
+               shape: every entry of dq, dk, dv within ``K4_BWD_TOL``
+               of its plain value (``k4_bwd_check``), and one key tile
+               of dk or dv zeroed must fail that; timed as in phase 4
+               beside the plain
+               version's backward and SDPA's (the library yardstick);
+               b. one make_train_step (AdamW, 2 microbatches) of the
+               dense, MoE, hybrid, vision and audio configs at .reduced()
+               width in float32 on the card and on the CPU: loss and
+               grad_norm within 1e-4, parameters after the step
+               (``lm_family_steps``);
+               c. llama3.2-3b at full width in bf16 (seeded weights),
+               train_4k's 4096 tokens in 2 microbatches of 1 (the one
+               cut: the global batch, 256 -> 2), AdamW with
+               warmup_cosine through the in-place update, tokens from a
+               seeded TokenStore: first a gate on the first batch's
+               first microbatch, the loss, the gradient norm and the q,
+               k, v projections' gradient norms with K4 and its backward
+               against plain attention on the card (``LM_TRAIN_GATE``),
+               and with K4's backward planted to give zeros, which must
+               fail it; 1 warm-up step, then 3 counted with
+               the counters zeroed (K4 forward twice per layer and
+               microbatch under remat, its backward once); then the first
+               batch again, profiled, whose loss must be lower than the
+               first step's.  ms per step, tokens/s, model TFLOP/s,
+               the busy share, peak memory, device ms by operation and
+               K4's forward and backward device ms per step.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(K1-K5), one ``{"server": ...}`` line, one ``{"train": ...}`` line, one
-``{"llm": ...}`` line, one ``{"scale_out": ...}`` line, and as the last
-line ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels DIR`` it
+(K1-K5 and K4's backward), one ``{"server": ...}`` line, one
+``{"train": ...}`` line, one ``{"llm": ...}`` line, one ``{"scale_out":
+...}`` line, one ``{"lm_train": ...}`` line, and as the last line
+``{"ok": true, "device": {...}}``.  With ``--gnn-kernels DIR`` it
 imports the port from DIR (another checkout's ``src``, to time
 two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
 and prints the card, a ``{"gnn_kernels_of": DIR, "kernels": [...]}`` line
@@ -224,6 +258,54 @@ SCALE_WORKERS, SCALE_SHARDS = 4, 4
 SCALE_KILL = {2: 1}     # FailureInjector: at gather 2 (0-based) kill worker 1
 FLEET_REPLICAS, FLEET_WRITE_ROWS = 3, 1024
 SCALE_ROOT = os.path.join(ROOT, "build", "smoke_scale_out")
+# phase 9 (lm_train): llama3.2-3b at train_4k's sequence length, 2
+# microbatches of 1 sequence (the one cut: the global batch, 256 -> 2)
+LM_TRAIN_ARCH, LM_TRAIN_SEQ, LM_TRAIN_MB, LM_TRAIN_N_MB = (
+    "llama3.2-3b", 4096, 1, 2)
+LM_TRAIN_COUNTED = 3
+# a llama-class peak learning rate with a 100-step warm-up: at the
+# launcher's 1e-3 over 10, the first AdamW steps (about +-lr on every
+# entry) of the random 3.6 B model raise its loss
+LM_TRAIN_LR = (3e-4, 100, 1000)
+LM_TRAIN_DATA = os.path.join(ROOT, "build", "smoke_tokens")
+LM_TRAIN_FAMILIES = ("llama3.2-3b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
+                     "phi-3-vision-4.2b", "whisper-small")
+# K4's backward at the training shapes: (label, B, S, T, H, K, hd, causal,
+# window); the first is llama3.2-3b's layer at train_4k
+K4_BWD_SHAPES = (
+    ("llama3.2-3b layer 0, train_4k", 1, 4096, 4096, 24, 8, 128, True, 0),
+    ("whisper-small cross-attention", 2, 64, 1500, 12, 12, 64, False, 0),
+    ("recurrentgemma-2b window 2048", 1, 4096, 4096, 10, 1, 256, True,
+     2048),
+    ("ragged small, hd 8", 3, 37, 53, 6, 2, 8, True, 0))
+# K4's backward against the plain version's, entry by entry
+# (``k4_bwd_check``): |got - want| <= rtol |want| + atol mean|want| + FLOOR
+# for each of dq, dk, dv, as (rtol, (atol of dq, dk, dv)).  bf16: rtol two
+# bf16 steps at the bottom of a binade (the two sides' roundings of a
+# float32 gradient are at most one step apart, and the kernel's float32
+# value moves with delta: at one step the llama shape read 0.88 of the
+# bound); dq and dk carry delta = rowsum(dO * O) from the forward's bf16
+# O, which the plain version computes in float32 (``atol_reading`` up to
+# 0.128 of the mean on an H100 at the shapes below), dv does not (1e-5).
+# float32: summation order only (up to 2.2e-4).  FLOOR: where every query
+# sees one key the exact dq and dk are 0 and the kernel gives rounding
+# noise (a few 1e-6).
+K4_BWD_TOL = {"float32": (1e-5, (1e-3, 1e-3, 1e-3)),
+              "bfloat16": (2 ** -6, (2 ** -2, 2 ** -2, 2 ** -8))}
+K4_BWD_FLOOR = 1e-4
+# and the largest |got - want| within this share of the largest |want|
+# (or of 1, where that is smaller)
+K4_BWD_LARGEST = {"float32": 1e-4, "bfloat16": 2e-2}
+K4_BWD_TILE = 64               # the planted fault: one key tile zeroed
+# phase 9 c's gate, K4 path against the plain attention, relative: the
+# loss, the whole model's gradient norm, and the norm of the q, k and v
+# projections' gradients (each over every layer).  Read on an H100 in two
+# runs (dq's atomics add in any order): the loss 2.5e-5 in both, the
+# gradient norm 1.1e-4 and 7.6e-5, the projections at most 2.2e-4 and
+# 3.0e-4; with K4's backward zeroed, the same loss (a forward reading),
+# 0.64 and 1.
+LM_TRAIN_GATE = {"loss": 2e-4, "grad_norm": 2e-3, "attn.wq": 2e-3,
+                 "attn.wk": 2e-3, "attn.wv": 2e-3}
 TRAIN_SMALL = dict(vertices=20_000, row_dim=128, batches=3,
                    mode="helios-nopipe", batch_size=256, fanouts=(10, 5),
                    hidden=64, train_embeddings=True, embedding_momentum=0.9,
@@ -746,9 +828,14 @@ def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
 
 
 def top_ops(prof, n=6, per=1):
-    return {e.key[:60]: e.self_device_time_total / 1e3 / per
-            for e in sorted(prof.key_averages(),
-                            key=lambda e: -e.self_device_time_total)[:n]}
+    """The ``n`` largest device times (ms, over ``per``) by operation
+    name, cut to 60 characters; operations whose cut names agree are
+    summed (a template's instances share their first 60)."""
+    by = {}
+    for e in prof.key_averages():
+        by[e.key[:60]] = by.get(e.key[:60], 0.0) + \
+            e.self_device_time_total / 1e3 / per
+    return dict(sorted(by.items(), key=lambda kv: -kv[1])[:n])
 
 
 def llm_plan(cfg):
@@ -1348,7 +1435,7 @@ def phase_train_backward(torch, dev, step, ops, refs):
     largest errors and the kernels' training-shape inputs, recorded in
     the kernel pass."""
     from repro_torch.gnn import models as gm
-    from repro_torch.train.optim import tree_leaves, tree_map
+    from repro_torch.core.tree import tree_leaves, tree_map
     g_ops, s_ops = ops
     g_ref, s_ref = refs
     params, (feats, src, dst, em, labels) = step
@@ -1439,7 +1526,7 @@ def train_small(torch, g, root, where, fault=None):
     from repro_torch.core.iostack import FeatureStore
     from repro_torch.gnn import models as gm
     from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
-    from repro_torch.train.optim import tree_leaves
+    from repro_torch.core.tree import tree_leaves
     cfg = dict(TRAIN_SMALL)
     n_v, row_dim, n_batches = (cfg.pop("vertices"), cfg.pop("row_dim"),
                                cfg.pop("batches"))
@@ -1957,6 +2044,397 @@ def phase_scale_out(torch, dev, g, store, scores, trace_ids, wl, ops,
              "fleet": fleet, "phase_s": time.perf_counter() - t0}, k1)
 
 
+def k4_bwd_check(torch, got, want, dtype):
+    """K4's backward ``got`` (dq, dk, dv) against the plain version's
+    ``want``, entry by entry: the largest |got - want| / (rtol |want| +
+    atol mean|want| + ``K4_BWD_FLOOR``) of each (``tol_ratio``, within 1),
+    with (rtol, atol) from ``K4_BWD_TOL``; the largest |got - want| over
+    the largest |want| (``largest_entry_err``, within ``K4_BWD_LARGEST``);
+    ``atol_reading``, each one's largest (|got - want| - rtol |want|) /
+    mean|want|; and ``fault_ratio``, the per-entry ratio with one key tile
+    of dk or of dv zeroed (from the middle key on), which must exceed 1.
+    The largest entries sit at the first keys under a causal mask (every
+    query sees them), so the bound on the largest entry alone would let a
+    later tile go wrong."""
+    rtol, atols = K4_BWD_TOL[dtype]
+    names = ("dq", "dk", "dv")
+    means = [float(b.float().abs().mean()) for b in want]
+
+    def excess(a, b):
+        return ((a.float() - b.float()).abs() - rtol * b.float().abs())
+
+    def ratio(i, a):
+        b = want[i].float()
+        return float(((a.float() - b).abs()
+                      / (rtol * b.abs() + atols[i] * means[i]
+                         + K4_BWD_FLOOR)).max())
+    out = {"max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, want)),
+           "largest_entry_err": max(
+               float((a.float() - b.float()).abs().max())
+               / max(float(b.float().abs().max()), 1.0)
+               for a, b in zip(got, want)),
+           "tol_ratio": {n: ratio(i, a)
+                         for i, (n, a) in enumerate(zip(names, got))},
+           "tolerance": {"rtol": rtol, "atol_of_mean": dict(zip(names,
+                                                                atols)),
+                         "floor": K4_BWD_FLOOR},
+           "atol_reading": {n: float(excess(a, b).max()) / max(m, 1e-30)
+                            for n, a, b, m in zip(names, got, want, means)},
+           "ref_abs_mean": dict(zip(names, means)),
+           "ref_abs_max": {n: float(b.float().abs().max())
+                           for n, b in zip(names, want)},
+           "fault_ratio": {}}
+    T = want[1].shape[1]
+    lo = (T // 2) // K4_BWD_TILE * K4_BWD_TILE
+    for i in (1, 2):
+        bad = got[i].clone()
+        bad[:, lo:lo + K4_BWD_TILE] = 0
+        out["fault_ratio"][f"{names[i]} keys {lo}:{lo + K4_BWD_TILE} "
+                           "zeroed"] = ratio(i, bad)
+    return out
+
+
+def k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype):
+    """K4's backward at one shape (``K4_BWD_SHAPES``) and dtype, on seeded
+    inputs: dq, dk, dv against autograd through the plain version on the
+    card (``k4_bwd_check``; a planted fault must fail it),
+    timed as in phase 4 beside the plain version's backward and SDPA's
+    (autograd through ``scaled_dot_product_attention`` on the same
+    inputs; the boolean mask where there is a window), each a backward
+    alone (its forward graph built once).  Bound: 10 hd FLOPs per visible
+    (query, key) pair and head (S, dP, dV, dK, dQ) over the dtype's peak,
+    or the bytes of q, k, v, o, dO read and dq, dk, dv written."""
+    label, B, S, T, H, K, hd, causal, window = shape
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(hd + S + len(dtype))
+    q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(B, T, K, hd, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    do = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
+    with torch.no_grad():
+        o = fa_ops.flash_attention(q, k, v, causal, 0, window)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal, 0, window)
+    torch.cuda.synchronize()
+
+    def graph(fn):
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        return fn(*qkv), qkv
+
+    out_p, qkv_p = graph(lambda a, b, c: fa_ref.attention_ref(
+        a, b, c, causal, 0, window))
+    want = torch.autograd.grad(out_p, qkv_p, do, retain_graph=True)
+    check = k4_bwd_check(torch, got, want, dtype)
+    if not (max(check["tol_ratio"].values()) <= 1
+            and check["largest_entry_err"] <= K4_BWD_LARGEST[dtype]
+            and min(check["fault_ratio"].values()) > 1):
+        raise AssertionError(f"K4 backward at {label} {dtype}: {check}")
+    del got, want
+    mask = fa_ref.visible(S, T, causal, 0, window, q.device)
+    pairs = int(mask.sum())
+    sd_mask = mask if window else None
+    out_l, qkv_l = graph(lambda a, b, c: F.scaled_dot_product_attention(
+        a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+        attn_mask=sd_mask, is_causal=causal and sd_mask is None,
+        enable_gqa=True))
+    do_l = do.transpose(1, 2)
+    byts = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    ops = 10 * B * H * hd * pairs
+    peak = BF16_OPS_S if dtype == "bfloat16" else F32_OPS_S
+    t_b, t_o = byts / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    row = dict(
+        input=label, dtype=dtype, **check,
+        **timing(lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, causal,
+                                                    0, window),
+                 lambda: torch.autograd.grad(out_p, qkv_p, do,
+                                             retain_graph=True),
+                 lambda: torch.autograd.grad(out_l, qkv_l, do_l,
+                                             retain_graph=True)),
+        bound_ms=max(t_b, t_o),
+        bound_by="bytes" if t_b > t_o else "operations",
+        visible_pairs=pairs,
+        shape=f"q={tuple(q.shape)} kv={tuple(k.shape)} causal={causal} "
+              f"window={window}")
+    del out_p, qkv_p, out_l, qkv_l
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_family_steps(torch, dev, fa_ops):
+    """Phase 9 b: one make_train_step (AdamW, 2 microbatches of 2 x 16
+    tokens) of every attention family at .reduced() width in float32, on
+    the card and on the CPU from the same parameters and batch: loss and
+    grad_norm within 1e-4 relative; new parameters within 1e-5 + 1e-4 of
+    each entry's magnitude but at most 0.1% of entries (AdamW's first step
+    is about +-lr per entry, and where a gradient is within rounding of
+    zero its sign decides; every such entry still within 2 lr + 1e-6); K4
+    forward and backward launched on the card."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm, steps
+    from repro_torch.train import optim
+    lr, out = 1e-3, {}
+    for name in LM_TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_config(name).reduced(),
+                                  dtype="float32")
+        rng = np.random.default_rng(3)
+        b = {"labels": rng.integers(0, cfg.vocab, (2, 2, 16))}
+        if cfg.enc_dec or not cfg.frontend:
+            b["tokens"] = rng.integers(0, cfg.vocab, (2, 2, 16))
+        if cfg.frontend:
+            b["enc_embeds" if cfg.enc_dec else "embeds"] = \
+                rng.normal(size=(2, 2, 16, cfg.d_model)).astype(np.float32)
+        res = {}
+        for d in ("cpu", dev):
+            model = lm.init_params(torch.Generator().manual_seed(7), cfg,
+                                   device=d)
+            opt = optim.adamw(lr)
+            state = steps.init_train_state(model, opt)
+            batch = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+            f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+            _, m = steps.make_train_step(cfg, opt, q_chunk=8)(state, batch)
+            res[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
+                           lm.params_to_numpy(model),
+                           (fa_ops.launches - f0, fa_ops.bwd_launches - b0))
+        (lc, gc, pc, _), (la, ga, pa, k4) = res["cpu"], res[str(dev)]
+        if min(k4) < 1:
+            raise AssertionError(f"{name}: K4 launches on the card {k4}")
+        for what, a, c in (("loss", la, lc), ("grad_norm", ga, gc)):
+            if not abs(a - c) <= 1e-4 * abs(c):
+                raise AssertionError(f"{name} train step {what}: card {a}, "
+                                     f"CPU {c}")
+        worst, off, total = 0.0, 0, 0
+        for key, c in lm.flat_cache(pc).items():
+            a = lm.flat_cache(pa)[key]
+            e = np.abs(a - c)
+            worst = max(worst, float(e.max()))
+            off += int((e > 1e-5 + 1e-4 * np.abs(c)).sum())
+            total += e.size
+        if off > 1e-3 * total or worst > 2 * lr + 1e-6:
+            raise AssertionError(f"{name} train step parameters: {off} of "
+                                 f"{total} entries off, worst {worst}")
+        out[name] = {"loss_card": la, "loss_cpu": lc, "grad_norm_card": ga,
+                     "grad_norm_cpu": gc, "max_param_diff": worst,
+                     "params_off": f"{off} of {total}",
+                     "k4_launches_fwd_bwd": k4}
+    log(f"[lm_train] reduced families, card vs CPU: {out}")
+    return out
+
+
+def lm_train_gate(torch, cfg, model, batch, fa_ops):
+    """Phase 9 c's gate: one microbatch's loss and gradients (no
+    optimizer) with K4 and its backward, then with autograd through the
+    plain attention (``_attend_plain``) on the card, then once more with
+    K4's backward planted to give zeros (the fault this slice repairs:
+    attention's dq, dk, dv lost); each side's gradients freed before the
+    next runs.  Each side reads the loss, the whole model's gradient norm
+    and the norm of each q, k and v projection's gradients over every
+    layer; the kernels' readings must agree with the plain ones within
+    ``LM_TRAIN_GATE``, and the fault's gradient readings must not (the
+    fault leaves the loss, a forward reading, as it is)."""
+    from repro_torch.models import attention, steps
+    out = {}
+    attend, bwd = attention.attend, fa_ops.flash_attention_bwd
+
+    def plain(q, k, v, *, causal=True, window=0, q_chunk=512, q_offset=0,
+              probs_dtype=torch.float32):
+        return attention._attend_plain(q, k, v, causal, window, q_chunk,
+                                       q_offset, probs_dtype)
+
+    def zeros(q, k, v, *args):
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+
+    def norm(gs):
+        return float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                    for g in gs)))
+    names = [n for n, _ in model.named_parameters()]
+    for side in ("kernels", "plain", "fault"):
+        if side == "plain":
+            attention.attend = plain
+        if side == "fault":
+            fa_ops.flash_attention_bwd = zeros
+        try:
+            f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+            loss, _ = steps.compute_loss(model, cfg, batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            read = {"loss": float(loss.detach()), "grad_norm": norm(grads)}
+            for proj in ("attn.wq", "attn.wk", "attn.wv"):
+                read[proj] = norm(g for n, g in zip(names, grads)
+                                  if n.endswith(proj))
+            out[side] = (read, fa_ops.launches - f0, fa_ops.bwd_launches - b0)
+            del loss, grads
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        finally:
+            attention.attend, fa_ops.flash_attention_bwd = attend, bwd
+    launches = {side: out[side][1:] for side in out}
+    if min(launches["kernels"]) < 1 or max(launches["plain"]) or \
+            launches["fault"][0] < 1:
+        raise AssertionError(f"gate: K4 launches (fwd, bwd) by side "
+                             f"{launches}")
+    want = out["plain"][0]
+
+    def rel(side):
+        return {k: abs(v - want[k]) / abs(want[k])
+                for k, v in out[side][0].items()}
+    gate = {"readings": {side: out[side][0] for side in out},
+            "rel_diff": rel("kernels"), "fault_rel_diff": rel("fault"),
+            "tolerance": LM_TRAIN_GATE}
+    if not (all(gate["rel_diff"][k] <= lim
+                for k, lim in LM_TRAIN_GATE.items())
+            and all(gate["fault_rel_diff"][k] > LM_TRAIN_GATE[k]
+                    for k in ("grad_norm", "attn.wq", "attn.wk",
+                              "attn.wv"))):
+        raise AssertionError(f"gate: K4 and its backward against the plain "
+                             f"attention: {gate}")
+    return gate
+
+
+def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
+    """Phase 9 (see the module docstring).  Returns (the ``lm_train``
+    report, K4's backward row for the kernel line)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import OutOfCoreTokenIterator, TokenStore
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import lm, steps
+    from repro_torch.train.optim import adamw, warmup_cosine
+
+    t_phase = time.perf_counter()
+    # a. K4's backward against its plain version, timed
+    rows = [k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype)
+            for shape in K4_BWD_SHAPES for dtype in ("bfloat16", "float32")]
+    log(f"[lm_train] a. K4 backward rows: {rows}")
+    # b. reduced families, card against CPU
+    families = lm_family_steps(torch, dev, fa_ops)
+
+    # c. full-width llama3.2-3b
+    cfg = get_config(LM_TRAIN_ARCH)
+    shutil.rmtree(LM_TRAIN_DATA, ignore_errors=True)
+    store = TokenStore(LM_TRAIN_DATA, n_sequences=64, seq_len=LM_TRAIN_SEQ,
+                       vocab=cfg.vocab, n_shards=4, create=True,
+                       seed=LLM_SEED)
+    it = OutOfCoreTokenIterator(store, LM_TRAIN_MB * LM_TRAIN_N_MB,
+                                LM_TRAIN_N_MB)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(LLM_SEED),
+                           cfg, device=dev).requires_grad_(True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    first = device_batch(next(it), cfg, dev)
+    gate = lm_train_gate(torch, cfg, model, {k: v[0] for k, v in
+                                             first.items()}, fa_ops)
+    log(f"[lm_train] c. gate {gate}")
+    opt = adamw(warmup_cosine(*LM_TRAIN_LR))
+    state = steps.init_train_state(model, opt)
+    train = steps.make_train_step(cfg, opt)
+    state, m0 = train(state, first)              # the warm-up step
+    losses = [float(m0["loss"])]
+    batches = [device_batch(next(it), cfg, dev)
+               for _ in range(LM_TRAIN_COUNTED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa_ops.launches = fa_ops.bwd_launches = 0
+    t0 = time.perf_counter()
+    norms = []
+    for b in batches:
+        state, m = train(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / LM_TRAIN_COUNTED
+    launches = {"K4_forward": fa_ops.launches,
+                "K4_backward": fa_ops.bwd_launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    # K4 forward twice per layer and microbatch (the remat forward
+    # recomputes it), backward once
+    want = {"K4_forward": 2 * cfg.n_layers * LM_TRAIN_N_MB * LM_TRAIN_COUNTED,
+            "K4_backward": cfg.n_layers * LM_TRAIN_N_MB * LM_TRAIN_COUNTED}
+    if launches != want:
+        raise AssertionError(f"lm_train: K4 launches {launches}, expected "
+                             f"{want}")
+    # the first step's batch again, profiled: its loss must be lower
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, m = train(state, first)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t1
+    again = float(m["loss"])
+    if not (np.isfinite(losses + norms + [again]).all()
+            and again < losses[0]):
+        raise AssertionError(f"lm_train: losses {losses}, the first batch "
+                             f"again {again}")
+    dev_ms = device_ms(prof)
+    k4_ms = {kind: sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.key.startswith(prefix)) / 1e3
+             for kind, prefix in (
+                 ("forward", "void (anonymous namespace)::tc::flash_fwd"),
+                 ("backward", "void (anonymous namespace)::bwd::"),
+                 ("backward_stats", "void (anonymous namespace)::stats::"))}
+    # the step's device time by kind: K4, the cuBLAS GEMMs, the rest
+    # (elementwise, reductions, copies, fills)
+    gemm = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.key.startswith(("nvjet", "sm90_xmma", "cutlass"))
+               or "gemm" in e.key.lower()) / 1e3
+    by_kind = {"K4": sum(k4_ms.values()), "gemm": gemm,
+               "other": dev_ms - sum(k4_ms.values()) - gemm}
+    tokens = LM_TRAIN_SEQ * LM_TRAIN_MB * LM_TRAIN_N_MB
+    n_mat = n_params - cfg.vocab * cfg.d_model       # the embedding lookup
+    pairs = LM_TRAIN_SEQ * (LM_TRAIN_SEQ + 1) // 2
+    attn = cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs * \
+        LM_TRAIN_MB * LM_TRAIN_N_MB
+    model_flops = 6 * n_mat * tokens + 12 * attn       # fwd 4, bwd 8 / pair
+    remat_flops = 2 * n_mat * tokens + 4 * attn
+    report = {
+        "config": LM_TRAIN_ARCH, "params": n_params, "dtype": cfg.dtype,
+        "seq_len": LM_TRAIN_SEQ, "microbatches": LM_TRAIN_N_MB,
+        "microbatch": LM_TRAIN_MB,
+        "reduced": "global batch 256 -> 2 (train_4k: 256 x 4096 tokens)",
+        "optimizer": f"adamw, warmup_cosine{LM_TRAIN_LR}, in place",
+        "init_s": init_s, "gate": gate,
+        "ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "model_tflop_s": model_flops / step_s / 1e12,
+        "hardware_tflop_s": (model_flops + remat_flops) / step_s / 1e12,
+        "model_flop_per_step": model_flops,
+        "remat_flop_per_step": remat_flops,
+        "peak_mem_gb": peak, "losses": losses, "grad_norms": norms,
+        "first_batch_loss_again": again,
+        "launches": launches,
+        "profiled_step_ms": prof_s * 1e3,
+        "device_ms_profiled_step": dev_ms,
+        "device_busy_share": dev_ms / (step_s * 1e3),
+        "device_busy_share_profiled_step": dev_ms / (prof_s * 1e3),
+        "k4_device_ms_per_step": k4_ms,
+        "device_ms_by_kind": by_kind,
+        "device_ms_by_op": top_ops(prof, n=12),
+        "families": families}
+    log(f"[lm_train] c. {report}")
+    it.io.close()
+    del model, state, train, opt, first, batches, m, m0, it, prof
+    shutil.rmtree(LM_TRAIN_DATA, ignore_errors=True)
+    torch.cuda.empty_cache()
+    llama = rows[0]
+    k4_bwd = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:64 "
+                 "(the backward of K4; the Pallas kernel has none)",
+        launches=launches["K4_backward"],
+        **{key: llama[key] for key in (
+            "max_abs_err", "largest_entry_err", "tol_ratio", "tolerance",
+            "atol_reading",
+            "ref_abs_mean", "ref_abs_max", "fault_ratio",
+            "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "timed_by", "event_ms", "per_launch_ms",
+            "visible_pairs", "input", "dtype", "shape")},
+        rows=rows[1:])
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, k4_bwd
+
+
 def serve(srv, workload):
     futs = [srv.submit(s, k, t) for s, t, k in workload]
     stats = srv.flush()
@@ -2259,12 +2737,18 @@ def main(argv):
     llm["cpu_max_abs_logit_err"], llm["cpu_bf16_moe_route_flips"] = \
         phase_cpu_llm(torch, dev, fa_ops)
 
+    # --- 9. the LM train step: K4's backward, families, full width --------
+    lm_train, k4_bwd = phase_lm_train(torch, dev, F, fa_ops, fa_ref)
+    kernels.append(k4_bwd)
+    log(f"[lm_train] phase in {lm_train['phase_s']:.1f} s")
+
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"server": server, "card": smi}))
     print(json.dumps({"train": train, "card": smi}))
     print(json.dumps({"llm": llm, "card": smi}))
     print(json.dumps({"scale_out": scale_out, "card": smi}))
+    print(json.dumps({"lm_train": lm_train, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

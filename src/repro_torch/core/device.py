@@ -19,7 +19,8 @@ def resolve_device(device) -> torch.device:
                 "pass device='cpu' to run on the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(device)!r} "
-                         "(expected 'cuda', 'cuda:N' or 'cpu')")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {str(device)!r} (expected "
+                         "'cuda', 'cuda:N', 'cpu', or 'meta' for shapes "
+                         "alone)")
     return dev

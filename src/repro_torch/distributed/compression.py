@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.train.optim import tree_leaves, tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 BLOCK = 256
 

@@ -24,7 +24,7 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.gather.ops import gather_rows
 from repro_torch.kernels.segment_agg.ops import segment_sum
-from repro_torch.train.optim import tree_map
+from repro_torch.core.tree import tree_map
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -23,6 +23,13 @@ raises, and so does a CUDA tensor in a form neither kernel takes.  Both
 kernels read q, k and v in the model's own ``(B, S, H, hd)`` layout
 through their strides (no copy); only the head dimension must be
 contiguous.
+
+Under autograd (grad enabled and an input that requires grad) a CUDA call
+goes through ``FlashAttentionFn``: the same forward launch, and a backward
+that is a kernel too, ``csrc/flash_attention_bwd.cu`` (``flash_attention_
+bwd``: a statistics pre-pass, then dq, dk, dv in float32 on the CUDA
+cores, every form the forward takes), counted in ``bwd_launches``.  On the
+CPU autograd runs through the plain version.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ route_launches = dict.fromkeys(ROUTES, 0)   # the same, per route
 # (causal, window, S == T) -> launches: an encoder's self-attention, a
 # decoder's, a cross-attention and a local one tell apart
 launches_by_use: dict = {}
+bwd_launches = 0   # backward calls (pre-pass + gradient kernel each)
 HEAD_DIMS = (8, 16, 32, 64, 80, 96, 112, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (64, 80, 96, 112, 128)
 TMA_ALIGN = 16    # bytes: TMA reads base pointers and strides of this unit
@@ -47,6 +55,7 @@ TMA_ALIGN = 16    # bytes: TMA reads base pointers and strides of this unit
 _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
          + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
 _ARGS_TC = _ARGS[:4] + _ARGS[5:]    # no dtype flag: bf16 only
+_ARGS_BWD = [ctypes.c_void_p] * 10 + _ARGS[4:]   # + o, do and 4 buffers
 
 
 def _lib() -> ctypes.CDLL:
@@ -55,6 +64,13 @@ def _lib() -> ctypes.CDLL:
     lib.helios_flash_attention.restype = ctypes.c_int
     lib.helios_flash_attention_tc.argtypes = _ARGS_TC
     lib.helios_flash_attention_tc.restype = ctypes.c_int
+    return lib
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    lib.helios_flash_attention_bwd.argtypes = _ARGS_BWD
+    lib.helios_flash_attention_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -132,11 +148,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset + i``; ``causal``: it sees keys up to it; ``window`` > 0:
     only keys less than ``window`` before it (``ref.visible``).  A query
     that sees no key gets zeros."""
-    global launches
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     if q.device.type == k.device.type == v.device.type == "cpu":
         return attention_ref(q, k, v, causal, q_offset, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, q_offset, window)
+    return _forward(q, k, v, causal, q_offset, window)
+
+
+def _forward(q, k, v, causal, q_offset, window) -> torch.Tensor:
+    """One forward launch on CUDA tensors (no autograd record)."""
+    global launches
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -167,3 +191,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     use = (bool(causal), int(window), S == T)
     launches_by_use[use] = launches_by_use.get(use, 0) + 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K4 under autograd on the card: the forward kernel, and the backward
+    kernel for its gradient.  Saves q, k, v and the output; under
+    ``torch.utils.checkpoint`` the forward is launched again inside the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, window):
+        o = _forward(q, k, v, causal, q_offset, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = (causal, q_offset, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, do, *ctx.args),
+                None, None, None)
+
+
+def flash_attention_bwd(q, k, v, o, do, causal: bool = True,
+                        q_offset: int = 0, window: int = 0):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, q_offset,
+    window)`` given its output ``o`` and the output's gradient ``do``, in
+    the inputs' dtype; dk and dv summed over the query heads that share a
+    kv head.  On CUDA tensors: the backward kernel (P recomputed in float32
+    from q and k, float32 accumulation, dq through a float32 buffer then
+    cast); on CPU tensors: autograd through the plain version, the
+    gradient the kernel is held to (``o`` unused)."""
+    global bwd_launches
+    if window < 0:
+        raise ValueError(f"flash_attention_bwd: window {window} < 0")
+    if q.device.type == k.device.type == v.device.type == "cpu":
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_ref(*qkv, causal, q_offset, window)
+            return torch.autograd.grad(out, qkv, do)
+    _check(q, k, v)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device} is not q's "
+                             f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    o, do = o.contiguous(), do.contiguous()
+    dev = q.device
+    dq = torch.zeros((B, S, H, hd), dtype=torch.float32, device=dev)
+    # the kernel writes every entry of dk and dv; with no query it is not
+    # launched and they are zeros
+    alloc = torch.empty if dq.numel() else torch.zeros
+    dk = alloc((B, T, K, hd), dtype=q.dtype, device=dev)
+    dv = alloc((B, T, K, hd), dtype=q.dtype, device=dev)
+    if dq.numel():
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+        delta = torch.empty_like(lse)
+        lib = _lib_bwd()
+        rc = lib.helios_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
+            B, S, T, H, K, hd,
+            *[t.stride(i) for t in (q, k, v) for i in (0, 1, 2)],
+            int(causal), int(q_offset), int(window), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(lib, rc, "flash_attention_bwd")
+        bwd_launches += 1
+    return dq.to(q.dtype), dk, dv

@@ -5,6 +5,11 @@ On CUDA tensors ``wkv`` launches ``csrc/rwkv_scan.cu`` (one CTA per
 counts the launch in ``launches``; on CPU tensors it runs the plain version
 (``ref.py``, the exact sequential recurrence); anything else raises, and so
 does a CUDA tensor in a form the kernel does not take.
+
+The kernel has no backward yet: on the card, with grad enabled and an
+input that requires grad, ``wkv`` raises ``NotImplementedError`` rather
+than return a result cut from the autograd graph.  On the CPU autograd
+runs through the plain version.
 """
 from __future__ import annotations
 
@@ -75,6 +80,12 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ts = (r, k, v, logw, u) if state is None else (r, k, v, logw, u, state)
     if all(t.device.type == "cpu" for t in ts):
         return wkv_ref(r, k, v, logw, u, state)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "wkv: K5 has no backward kernel yet (ROADMAP.md queue 1: K5's "
+            "backward, then rwkv6-7b training on the card); on the card it "
+            "runs only without grad (torch.no_grad) or on inputs that do not "
+            "require grad")
     _check(r, k, v, logw, u, state)
     B, T, H, N = r.shape
     s_in = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)

@@ -31,7 +31,8 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models.attention import (Attention, attend, attention_block,
                                           attention_decode_block,
                                           decode_attend, output_proj)
-from repro_torch.models.layers import MLP, Norm, apply_norm, draw_, mlp, param
+from repro_torch.models.layers import (MLP, Norm, apply_norm, draw_, mlp,
+                                       param, remat)
 
 
 def sinusoid(seq_len: int, d_model: int, dtype=torch.float32, device=None):
@@ -133,15 +134,29 @@ def _xattn(x, p: Attention, cfg: ModelConfig, enc_out):
     return output_proj(attend(q, k, v, causal=False, q_chunk=512), p)
 
 
+def _enc_layer(x, lp: EncDecLayer, cfg: ModelConfig):
+    a, _ = attention_block(apply_norm(x, lp.ln1, cfg.norm), lp.attn, cfg,
+                           causal=False)
+    x = x + a
+    return x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act)
+
+
+def _dec_layer(x, lp: EncDecLayer, cfg: ModelConfig, enc_out):
+    """One decoder layer: (x', its self-attention (k, v))."""
+    a, kv = attention_block(apply_norm(x, lp.ln1, cfg.norm), lp.attn, cfg,
+                            causal=True)
+    x = x + a
+    x = x + _xattn(apply_norm(x, lp.ln_x, cfg.norm), lp.xattn, cfg, enc_out)
+    return x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act), kv
+
+
 def encode(params: EncDec, cfg: ModelConfig, frames):
-    """frames: (B, S, D) stub embeddings -> encoder hidden (B, S, D)."""
+    """frames: (B, S, D) stub embeddings -> encoder hidden (B, S, D).
+    Each layer is checkpointed under autograd with ``cfg.remat``."""
     x = frames + sinusoid(frames.shape[1], cfg.d_model, frames.dtype,
                           frames.device)[None]
     for lp in params.enc.blocks:
-        a, _ = attention_block(apply_norm(x, lp.ln1, cfg.norm), lp.attn, cfg,
-                               causal=False)
-        x = x + a
-        x = x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act)
+        x = remat(cfg, _enc_layer, x, lp, cfg)
     return apply_norm(x, params.enc.final_norm, cfg.norm)
 
 
@@ -149,18 +164,14 @@ def decode_train(params: EncDec, cfg: ModelConfig, tok_embeds, enc_out,
                  return_kv: bool = False):
     """Teacher-forced decoder pass.  tok_embeds: (B, S, D).  Returns the
     hidden (B, S, D), and with ``return_kv`` also each layer's
-    self-attention (k, v)."""
+    self-attention (k, v).  Each layer is checkpointed under autograd with
+    ``cfg.remat``."""
     x = tok_embeds + sinusoid(tok_embeds.shape[1], cfg.d_model,
                               tok_embeds.dtype, tok_embeds.device)[None]
     kvs = []
     for lp in params.dec.blocks:
-        a, kv = attention_block(apply_norm(x, lp.ln1, cfg.norm), lp.attn,
-                                cfg, causal=True)
+        x, kv = remat(cfg, _dec_layer, x, lp, cfg, enc_out)
         kvs.append(kv)
-        x = x + a
-        x = x + _xattn(apply_norm(x, lp.ln_x, cfg.norm), lp.xattn, cfg,
-                       enc_out)
-        x = x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act)
     x = apply_norm(x, params.dec.final_norm, cfg.norm)
     return (x, kvs) if return_kv else x
 

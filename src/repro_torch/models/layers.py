@@ -15,6 +15,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -183,3 +184,15 @@ def mlp(x, p: MLP, act: str):
     if hasattr(p, "b_down"):
         y = y + p.b_down
     return y
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``; under autograd with ``cfg.remat`` set, through
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference wraps a
+    layer in ``jax.checkpoint``: the layer's activations are dropped after
+    the forward and recomputed in the backward, K4's forward kernel
+    included."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)

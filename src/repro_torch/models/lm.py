@@ -9,7 +9,9 @@ registered family:
     attention layers plus a tail (recurrentgemma-2b).
 
 Encoder-decoder configs (whisper-small) live in ``models/encdec.py``;
-``init_params`` and ``params_from_numpy`` build either.
+``init_params`` and ``params_from_numpy`` build either, and
+``params_to_numpy`` (``param_tree``) gives either back in the reference's
+pytree layout.
 
 The parameters are one ``LM`` module whose names follow the reference
 pytree (``embed``, ``unembed``, ``final_norm.scale``, ``ln0``, and per layer
@@ -24,7 +26,10 @@ in sorted name order, as the reference's ``for name in sorted(lps)``.
 Prefill attention runs the K4 kernel on the card (windowed on the hybrid)
 and RWKV's WKV scan the K5 kernel; decode, the MoE dispatch and the RG-LRU
 scan are plain PyTorch, as the reference leaves them to XLA.  The decode
-caches are updated in place.
+caches are updated in place.  ``forward`` is also the train step's trunk:
+under autograd K4 runs with its backward kernel (K5 has none yet and
+refuses), and with ``cfg.remat`` each layer (a hybrid's repeat group) is
+checkpointed, as the reference's ``jax.checkpoint``.
 
 TF32 is off for float32 products and convolutions on the card (set here,
 for the whole process), so float32 logits match the CPU within float32
@@ -41,8 +46,10 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models.attention import (Attention, attention_block,
                                           attention_decode_block)
-from repro_torch.models.layers import MLP, Norm, apply_norm, draw_, mlp, param
+from repro_torch.models.layers import (MLP, Norm, apply_norm, draw_, mlp,
+                                       param, remat)
 from repro_torch.models.moe import MoE, moe_block
+from repro_torch.core.tree import Stacked, tree_map
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -161,14 +168,27 @@ def _split_at(path: tuple) -> int | None:
     return i + 3 if path[i + 1] in ("repeat", "tail") else i + 1
 
 
+def _host(a):
+    """A leaf of a reference tree as a tensor: numpy (bfloat16 from
+    ml_dtypes through float32, exact) or a tensor as it is (the port's
+    checkpoints restore bfloat16 as CPU tensors)."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(np.array(a, np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 @torch.no_grad()
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
     """The reference's ``lm.init_params`` (or ``encdec.init_params``) pytree
-    with numpy leaves (``jax.tree.map(np.asarray, params)``) as the port's
-    ``LM`` (or ``EncDec``) on ``device``: each stacked leaf is split along
-    its leading layer (or repeat) dimension.  Every leaf must match one
-    parameter by name, shape and dtype, and every parameter must get
-    one."""
+    with numpy leaves (``jax.tree.map(np.asarray, params)``, or a
+    checkpoint's restored tree, whose bfloat16 leaves are CPU tensors) as
+    the port's ``LM`` (or ``EncDec``) on ``device``: each stacked leaf is
+    split along its leading layer (or repeat) dimension.  Every leaf must
+    match one parameter by name, shape and dtype, and every parameter must
+    get one."""
     dev = resolve_device(device)
     model = encdec.EncDec(cfg, dev) if cfg.enc_dec else LM(cfg, dev)
     state = {}
@@ -178,7 +198,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
             for k, v in node.items():
                 walk(v, path + (k,))
             return
-        a = np.asarray(node)
+        a = _host(node)
         cut = _split_at(path)
         if cut is None:
             state[".".join(path)] = a
@@ -194,13 +214,55 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda"):
                          f", only in the port {sorted(set(params) - set(state))}")
     for name, a in state.items():
         p = params[name]
-        if tuple(a.shape) != tuple(p.shape) or \
-                str(a.dtype) != str(p.dtype).removeprefix("torch."):
-            raise ValueError(f"{name}: reference {a.shape} {a.dtype}, port "
-                             f"{tuple(p.shape)} {p.dtype}")
-        # bfloat16 (ml_dtypes) goes through float32, exact both ways
-        p.copy_(torch.from_numpy(np.array(a, np.float32)))
+        if tuple(a.shape) != tuple(p.shape) or a.dtype != p.dtype:
+            raise ValueError(f"{name}: reference {tuple(a.shape)} {a.dtype}, "
+                             f"port {tuple(p.shape)} {p.dtype}")
+        p.copy_(a)
     return model
+
+
+def param_tree(params) -> dict:
+    """The reference's pytree layout of ``params`` (an ``LM`` or
+    ``EncDec``, or ``{dotted name: tensor}`` such as its gradients): nested
+    dicts by name, each of the reference's stacked leaves an
+    ``tree.Stacked`` of the per-layer tensors in layer order.  The tensors
+    are the ones given, not copies: the optimizer updates them in
+    place."""
+    named = (params if isinstance(params, dict)
+             else dict(params.named_parameters()))
+    tree, stacks = {}, {}
+    for name, t in named.items():
+        path = tuple(name.split("."))
+        cut = _split_at(path)
+        if cut is None:
+            key, leaf = path, t
+        else:
+            key = path[:cut] + path[cut + 1:]
+            stacks.setdefault(key, {})[int(path[cut])] = t
+            leaf = stacks[key]
+        node = tree
+        for k in key[:-1]:
+            node = node.setdefault(k, {})
+        node[key[-1]] = leaf
+    for key, by_index in stacks.items():
+        node = tree
+        for k in key[:-1]:
+            node = node[k]
+        node[key[-1]] = Stacked(by_index[i] for i in range(len(by_index)))
+    return tree
+
+
+@torch.no_grad()
+def params_to_numpy(params) -> dict:
+    """The inverse of ``params_from_numpy``: the reference's pytree of an
+    ``LM`` or ``EncDec``, stacked leaves stacked again, on the host: numpy
+    arrays, and CPU tensors for bfloat16 leaves (numpy has no bfloat16;
+    ``CheckpointManager`` writes either in the reference's format)."""
+    def host(x):
+        a = (torch.stack([s.detach() for s in x]) if isinstance(x, Stacked)
+             else x.detach()).to("cpu", copy=True)
+        return a if a.dtype == torch.bfloat16 else a.numpy()
+    return tree_map(host, param_tree(params))
 
 
 def _layers(params: LM, cfg: ModelConfig):
@@ -279,15 +341,41 @@ def _layer_fwd(x, name: str, lp, cfg: ModelConfig, q_chunk: int):
 # Forward (prefill trunk)
 # ---------------------------------------------------------------------------
 
+def _run_layers(x, aux, layers, cfg: ModelConfig, q_chunk: int):
+    """``layers`` ([(name, layer)]) in order over (B, S, D); aux summed."""
+    for name, lp in layers:
+        x, _, a = _layer_fwd(x, name, lp, cfg, q_chunk)
+        aux = aux + a
+    return x, aux
+
+
+def _remat_units(params: LM, cfg: ModelConfig):
+    """(layers, checkpointed) in the order they run: each layer of a
+    uniform stack, each repeat of a hybrid's groups (in sorted name order),
+    then a hybrid's tail layers unchecked, as the reference's scan bodies
+    are ``jax.checkpoint``-ed and its tail is not."""
+    units = []
+    for group, name, r, lp in _layers(params, cfg):
+        if group == "repeat" and units and units[-1][2] == r:
+            units[-1][0].append((name, lp))
+        else:
+            units.append(([(name, lp)], group != "tail", r))
+    return [(layers, ckpt) for layers, ckpt, _ in units]
+
+
 def forward(params: LM, cfg: ModelConfig, x, q_chunk: int = 512):
     """x: (B, S, D) embeddings -> (hidden (B,S,D), aux_loss), the MoE
-    layers' load-balance and z losses summed (0 without MoE)."""
+    layers' load-balance and z losses summed (0 without MoE).  Under
+    autograd with ``cfg.remat``, each unit of ``_remat_units`` is
+    checkpointed."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block == "rwkv":
         x = apply_norm(x, params.ln0, cfg.norm)
-    for _, name, _, lp in _layers(params, cfg):
-        x, _, a = _layer_fwd(x, name, lp, cfg, q_chunk)
-        aux = aux + a
+    for layers, ckpt in _remat_units(params, cfg):
+        if ckpt:
+            x, aux = remat(cfg, _run_layers, x, aux, layers, cfg, q_chunk)
+        else:
+            x, aux = _run_layers(x, aux, layers, cfg, q_chunk)
     return apply_norm(x, params.final_norm, cfg.norm), aux
 
 

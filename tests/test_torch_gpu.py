@@ -782,7 +782,7 @@ def test_gpu_trainer_matches_cpu(tmp_path, kw):
     losses within 1e-4 relative and the final parameters within 1e-4
     (K3's atomics and cuBLAS sum in other orders, carried by AdamW)."""
     from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
-    from repro_torch.train.optim import tree_leaves
+    from repro_torch.core.tree import tree_leaves
     dev = _cuda()
     g = synth_graph(4000, 8, seed=0)
     runs = []
@@ -921,3 +921,172 @@ def test_gpu_fleet_matches_cpu(tmp_path):
                 assert a["latency_v"] == b["latency_v"]
                 np.testing.assert_allclose(a["logits"], b["logits"],
                                            rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K4's backward (FlashAttentionFn) and the kernels without one
+# ---------------------------------------------------------------------------
+
+def _k4_grads(q, k, v, do, causal, q_offset, window, fn):
+    """(out, dq, dk, dv) of ``fn`` at leaf copies of q, k, v."""
+    qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fn(*qkv, causal, q_offset, window)
+    out.backward(do)
+    return (out, *(t.grad for t in qkv))
+
+
+# entry by entry: |got - want| <= rtol |want| + atol mean|want| + floor,
+# (rtol, (atol of dq, dk, dv)) by dtype, as chip_smoke.py's K4_BWD_TOL:
+# in bf16, dq and dk carry delta = rowsum(dO * O) from the forward's bf16
+# output, which the plain version computes in float32; dv does not.  The
+# floor: where a query sees one key, P = 1 and dS = 0, the exact dq and
+# dk are zero and the kernel gives rounding noise.
+K4_BWD_TOL = {torch.float32: (1e-5, (1e-3, 1e-3, 1e-3)),
+              torch.bfloat16: (2 ** -6, (2 ** -2, 2 ** -2, 2 ** -8))}
+K4_BWD_FLOOR = 1e-4
+# and the largest |got - want| within this share of the largest |want|,
+# or of 1 where that is smaller
+K4_BWD_LARGEST = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _k4_bwd_ratio(a, b, rtol, atol):
+    """The largest |a - b| / (rtol |b| + atol mean|b| + floor)."""
+    b = b.float()
+    return float(((a.float() - b).abs()
+                  / (rtol * b.abs() + atol * float(b.abs().mean())
+                     + K4_BWD_FLOOR)).max())
+
+
+def _k4_bwd_check(q, k, v, causal, q_offset, window, g, fault=False):
+    """The K4 autograd Function's dq, dk, dv against autograd through the
+    plain version on the same card tensors, every entry within
+    ``K4_BWD_TOL`` and the largest error within ``K4_BWD_LARGEST``; one
+    forward and one backward launch counted.  With
+    ``fault``, one tile of 64 keys of dk, then of dv, zeroed from the
+    middle key on must fail the same check."""
+    do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    out, *got = _k4_grads(q, k, v, do, causal, q_offset, window,
+                          fa_ops.flash_attention)
+    torch.cuda.synchronize()
+    assert out.grad_fn is not None
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (f0 + 1, b0 + 1)
+    _, *want = _k4_grads(q, k, v, do, causal, q_offset, window,
+                         attention_ref)
+    rtol, atols = K4_BWD_TOL[q.dtype]
+    for name, a, b, atol in zip(("dq", "dk", "dv"), got, want, atols):
+        assert a.dtype == b.dtype == q.dtype and a.shape == b.shape
+        r = _k4_bwd_ratio(a, b, rtol, atol)
+        largest = float((a.float() - b.float()).abs().max()) / max(
+            float(b.float().abs().max()), 1.0)
+        assert r <= 1 and largest <= K4_BWD_LARGEST[q.dtype], (
+            name, r, largest, tuple(q.shape), tuple(k.shape), causal,
+            q_offset, window)
+    if fault:
+        lo = (k.shape[1] // 2) // 64 * 64
+        for i in (1, 2):
+            bad = got[i].clone()
+            bad[:, lo:lo + 64] = 0
+            assert _k4_bwd_ratio(bad, want[i], rtol, atols[i]) > 1, i
+
+
+def test_gpu_flash_attention_bwd_forms():
+    """K4's backward over the forms the forward takes, drawn by
+    hypothesis: float32 and bf16 at every head width, GQA and MQA, ragged
+    S and T with S != T, causal or not, a q_offset, a window, q/k/v as
+    views of one packed projection or contiguous.  Every entry within
+    ``K4_BWD_TOL``: float32 to its summation order (atomics add dq in any
+    order), bf16 to two bf16 steps, and for dq and dk to delta = rowsum(dO
+    * O), whose O is the forward's bf16 output with P rounded to bf16 on
+    the tensor cores."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as st
+    dev = _cuda()
+
+    @settings(max_examples=80, deadline=None, derandomize=True)
+    @given(dtype=st.sampled_from([torch.float32, torch.bfloat16]),
+           hd=st.sampled_from(fa_ops.HEAD_DIMS), K=st.integers(1, 3),
+           G=st.integers(1, 4), B=st.integers(1, 2), S=st.integers(1, 160),
+           T=st.integers(1, 160), causal=st.booleans(),
+           offset=st.sampled_from(["zero", "end", "some"]),
+           window=st.sampled_from([0, 0, 1, 7, 64, 100]),
+           packed=st.booleans(), seed=st.integers(0, 2 ** 16))
+    def check(dtype, hd, K, G, B, S, T, causal, offset, window, packed,
+              seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        H = K * G
+        q_offset = {"zero": 0, "end": max(T - S, 0),
+                    "some": seed % 40}[offset]
+        if packed:
+            qkv = torch.randn(B, max(S, T), H + 2 * K, hd, generator=g,
+                              device=dev).to(dtype)
+            q, k, v = (qkv[:, :S, :H], qkv[:, :T, H:H + K],
+                       qkv[:, :T, H + K:])
+        else:
+            q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(B, T, K, hd, generator=g,
+                                device=dev).to(dtype) for _ in range(2))
+        _k4_bwd_check(q, k, v, causal, q_offset, window, g)
+
+    check()
+
+
+# (label, B, S, T, H, K, hd, causal, window): chip_smoke.py's phase
+# lm_train (a) shapes
+K4_BWD_SHAPES = (
+    ("llama3.2-3b layer 0, train_4k", 1, 4096, 4096, 24, 8, 128, True, 0),
+    ("whisper-small cross-attention", 2, 64, 1500, 12, 12, 64, False, 0),
+    ("recurrentgemma-2b window", 1, 4096, 4096, 10, 1, 256, True, 2048),
+    ("ragged small", 3, 37, 53, 6, 2, 8, True, 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K4_BWD_SHAPES, ids=lambda s: s[0])
+def test_gpu_flash_attention_bwd_model_shapes(shape, dtype):
+    """K4's backward at the training shapes chip_smoke.py times, against
+    the plain version's autograd, with the tolerances of
+    ``test_gpu_flash_attention_bwd_forms``; a key tile of dk or dv zeroed
+    fails them."""
+    dev = _cuda()
+    _, B, S, T, H, K, hd, causal, window = shape
+    g = torch.Generator(device=dev).manual_seed(hd + S)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(B, T, K, hd, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    _k4_bwd_check(q, k, v, causal, 0, window, g, fault=True)
+
+
+def test_gpu_flash_attention_keeps_grad_fn():
+    """On CUDA inputs that require grad, K4's output carries a grad_fn
+    (FlashAttentionFn) and its gradient reaches q, k and v; without grad
+    (no_grad, or inputs that do not require it) the plain launch records
+    nothing."""
+    dev = _cuda()
+    q = torch.randn(1, 16, 4, 64, device=dev, requires_grad=True)
+    k = torch.randn(1, 16, 2, 64, device=dev, requires_grad=True)
+    v = torch.randn(1, 16, 2, 64, device=dev)
+    out = fa_ops.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.sum().backward()
+    assert q.grad.abs().sum() > 0 and k.grad.abs().sum() > 0
+    with torch.no_grad():
+        assert fa_ops.flash_attention(q, k, v).grad_fn is None
+    assert fa_ops.flash_attention(q.detach(), k.detach(), v).grad_fn is None
+
+
+def test_gpu_wkv_refuses_grad():
+    """K5 has no backward: on the card, under grad with an input that
+    requires grad, ``wkv`` raises NotImplementedError naming the queued
+    backward and launches nothing; under no_grad it runs."""
+    dev = _cuda()
+    B, T, H, N = 1, 8, 2, 16
+    r, k, v = (torch.randn(B, T, H, N, device=dev) for _ in range(3))
+    logw = -torch.rand(B, T, H, N, device=dev) - 0.1
+    u = torch.randn(H, N, device=dev, requires_grad=True)
+    before = wkv_ops.launches
+    with pytest.raises(NotImplementedError, match="backward"):
+        wkv_ops.wkv(r, k, v, logw, u)
+    assert wkv_ops.launches == before
+    with torch.no_grad():
+        y, _ = wkv_ops.wkv(r, k, v, logw, u)
+    assert wkv_ops.launches == before + 1 and y.grad_fn is None

@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "examples", "train_gnn_outofcore_torch.py"),
-           os.path.join(ROOT, "examples", "serve_decode_torch.py")]
+           os.path.join(ROOT, "examples", "serve_decode_torch.py"),
+           os.path.join(ROOT, "examples", "train_llm_tiered_torch.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -55,8 +56,10 @@ def test_port_sources_exist():
     assert os.path.exists(srcs[0]), "chip_smoke.py is missing"
     assert os.path.exists(srcs[1]), "the port's trainer example is missing"
     assert os.path.exists(srcs[2]), "the port's serving example is missing"
-    for mod in ("moe", "rglru", "encdec", "frontends"):
-        assert os.path.join(PORT, "models", f"{mod}.py") in srcs, mod
+    assert os.path.exists(srcs[3]), "the port's LM training example is missing"
+    for mod in ("models/moe", "models/rglru", "models/encdec",
+                "models/frontends", "data/tokens", "launch/train"):
+        assert os.path.join(PORT, f"{mod}.py") in srcs, mod
     assert len(srcs) > 20
 
 
@@ -80,7 +83,8 @@ def test_guard_catches_forbidden_imports(tmp_path):
 COPIES = (["core/" + m + ".py" for m in ("rng", "simulator", "iostack",
                                          "writeback", "policy", "hotness",
                                          "pipeline")]
-          + ["ft/chaos.py", "ft/failures.py", "gnn/graph.py",
+          + ["data/tokens.py", "ft/chaos.py", "ft/failures.py",
+             "gnn/graph.py",
              "gnn/sampling.py", "serving/scheduler.py", "serving/stats.py",
              "distributed/partition.py", "distributed/remote_engine.py"]
           + ["obs/" + f for f in sorted(os.listdir(os.path.join(PORT, "obs")))
@@ -254,3 +258,21 @@ def test_lm_family_entry_points_default_to_the_card():
     spec.loader.exec_module(example)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         example.main(["--arch", "kimi-k2-1t-a32b"])
+
+
+def test_lm_train_entry_points_default_to_the_card():
+    """The training launcher and the LM training example refuse to run
+    quietly on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib.util
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "llama3.2-3b", "--steps", "1"])
+    spec = importlib.util.spec_from_file_location(
+        "train_llm_tiered_torch",
+        os.path.join(ROOT, "examples", "train_llm_tiered_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(["--steps", "1"])

@@ -8,6 +8,8 @@ train step (K4 forward and backward) at full width.
     python3 chip_smoke.py
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
                                                     # of another checkout
+    python3 chip_smoke.py --lm-kernels OTHER/src    # phases 1 and 9 a only,
+                                                    # of another checkout
 
 Imports nothing of JAX and nothing of the reference package.  Phases; any
 failure raises and the script exits non-zero:
@@ -176,10 +178,12 @@ failure raises and the script exits non-zero:
                128), kv 8 heads, causal), whisper's cross-attention (64
                over 1500 frames, non-causal), recurrentgemma's window
                (hd 256, MQA, window 2048, S 4096) and a ragged hd-8
-               shape: every entry of dq, dk, dv within ``K4_BWD_TOL``
-               of its plain value (``k4_bwd_check``), and one key tile
-               of dk or dv zeroed must fail that; timed as in phase 4
-               beside the plain
+               shape: each on the route its dtype and width call for
+               (``kernel_route``: bf16 at hd 64-128 on the tensor cores,
+               from the forward's saved log-sum-exp), every entry of dq,
+               dk, dv within ``K4_BWD_TOL`` of its plain value
+               (``k4_bwd_check``), and one key tile of dk or dv zeroed
+               must fail that; timed as in phase 4 beside the plain
                version's backward and SDPA's (the library yardstick);
                b. one make_train_step (AdamW, 2 microbatches) of the
                dense, MoE, hybrid, vision and audio configs at .reduced()
@@ -194,14 +198,17 @@ failure raises and the script exits non-zero:
                first microbatch, the loss, the gradient norm and the q,
                k, v projections' gradient norms with K4 and its backward
                against plain attention on the card (``LM_TRAIN_GATE``),
-               and with K4's backward planted to give zeros, which must
-               fail it; 1 warm-up step, then 3 counted with
-               the counters zeroed (K4 forward twice per layer and
-               microbatch under remat, its backward once); then the first
-               batch again, profiled, whose loss must be lower than the
-               first step's.  ms per step, tokens/s, model TFLOP/s,
-               the busy share, peak memory, device ms by operation and
-               K4's forward and backward device ms per step.
+               the kernel side run twice (``repeat``: whether its
+               readings repeat bit for bit), and with K4's backward
+               planted to give zeros, which must fail it; 1 warm-up step,
+               then 3 counted with the counters zeroed (K4 forward twice
+               per layer and microbatch under remat, its backward once,
+               every backward on the tensor cores); then the first batch
+               again, profiled, whose loss must be lower than the first
+               step's.  ms per step, tokens/s, model TFLOP/s, the busy
+               share, peak memory, device ms by operation and K4's device
+               ms per step: the forward, and the backward's delta pass,
+               dK/dV and dQ kernels.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (K1-K5 and K4's backward), one ``{"server": ...}`` line, one
@@ -211,8 +218,11 @@ Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 imports the port from DIR (another checkout's ``src``, to time
 two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
 and prints the card, a ``{"gnn_kernels_of": DIR, "kernels": [...]}`` line
-and the last line.  Without a CUDA device, or outside a checkout of the
-repository, it prints no result and exits non-zero.
+and the last line.  With ``--lm-kernels DIR`` likewise phases 1 and 9 a
+(K4's backward rows, to time two trees' K4 backward in one call), and a
+``{"lm_kernels_of": DIR, "kernels": [...]}`` line.  Without a CUDA device,
+or outside a checkout of the repository, it prints no result and exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -2095,16 +2105,35 @@ def k4_bwd_check(torch, got, want, dtype):
     return out
 
 
+def k4_bwd_call(torch, fa_ops, q, k, v, do, causal, window):
+    """K4's backward on (q, k, v, do) as a call with no arguments, after
+    one forward: with the forward's saved log-sum-exp where the package
+    has ``flash_attention_fwd`` (this tree), else as a tree before it took
+    one (``--lm-kernels`` of an older checkout)."""
+    with torch.no_grad():
+        if hasattr(fa_ops, "flash_attention_fwd"):
+            o, lse = fa_ops.flash_attention_fwd(q, k, v, causal, 0, window)
+            return lambda: fa_ops.flash_attention_bwd(
+                q, k, v, o, do, causal, 0, window, lse=lse)
+        o = fa_ops.flash_attention(q, k, v, causal, 0, window)
+        return lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, causal, 0,
+                                                  window)
+
+
 def k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype):
     """K4's backward at one shape (``K4_BWD_SHAPES``) and dtype, on seeded
     inputs: dq, dk, dv against autograd through the plain version on the
-    card (``k4_bwd_check``; a planted fault must fail it),
-    timed as in phase 4 beside the plain version's backward and SDPA's
-    (autograd through ``scaled_dot_product_attention`` on the same
-    inputs; the boolean mask where there is a window), each a backward
-    alone (its forward graph built once).  Bound: 10 hd FLOPs per visible
-    (query, key) pair and head (S, dP, dV, dK, dQ) over the dtype's peak,
-    or the bytes of q, k, v, o, dO read and dq, dk, dv written."""
+    card (``k4_bwd_check``; a planted fault must fail it), on the route
+    its dtype and width call for (``kernel_route``; bf16 at hd 64-128: the
+    tensor cores), timed as in phase 4 beside the plain version's backward
+    and SDPA's (autograd through ``scaled_dot_product_attention`` on the
+    same inputs; the boolean mask where there is a window), each a
+    backward alone (its forward graph built once).  Bound: 10 hd FLOPs per
+    visible (query, key) pair and head (S, dP, dV, dK, dQ) over the
+    dtype's peak, or the bytes of q, k, v, o, dO read and dq, dk, dv
+    written; ``design_hd_per_pair``: what the route's kernels do (the
+    tensor cores' split design 16 hd: S and dP twice, P's bf16 low half
+    into dV)."""
     label, B, S, T, H, K, hd, causal, window = shape
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(hd + S + len(dtype))
@@ -2112,10 +2141,18 @@ def k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype):
     k, v = (torch.randn(B, T, K, hd, generator=g, device="cuda").to(dt)
             for _ in range(2))
     do = torch.randn(B, S, H, hd, generator=g, device="cuda").to(dt)
-    with torch.no_grad():
-        o = fa_ops.flash_attention(q, k, v, causal, 0, window)
-    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal, 0, window)
+    bwd = k4_bwd_call(torch, fa_ops, q, k, v, do, causal, window)
+    routes = getattr(fa_ops, "bwd_route_launches", None)
+    before = dict(routes or {})
+    got = bwd()
     torch.cuda.synchronize()
+    route = ("cuda_cores" if routes is None else
+             next(r for r, n in routes.items() if n != before[r]))
+    want_route = ("tensor_cores" if routes is not None and dtype ==
+                  "bfloat16" and hd in fa_ops.TENSOR_CORE_HEAD_DIMS
+                  else "cuda_cores")
+    if route != want_route:
+        raise AssertionError(f"K4 backward at {label} {dtype} took {route}")
 
     def graph(fn):
         qkv = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -2143,15 +2180,15 @@ def k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype):
     peak = BF16_OPS_S if dtype == "bfloat16" else F32_OPS_S
     t_b, t_o = byts / HBM_BYTES_S * 1e3, ops / peak * 1e3
     row = dict(
-        input=label, dtype=dtype, **check,
-        **timing(lambda: fa_ops.flash_attention_bwd(q, k, v, o, do, causal,
-                                                    0, window),
+        input=label, dtype=dtype, kernel_route=route, **check,
+        **timing(bwd,
                  lambda: torch.autograd.grad(out_p, qkv_p, do,
                                              retain_graph=True),
                  lambda: torch.autograd.grad(out_l, qkv_l, do_l,
                                              retain_graph=True)),
         bound_ms=max(t_b, t_o),
         bound_by="bytes" if t_b > t_o else "operations",
+        design_hd_per_pair=16 if route == "tensor_cores" else 10,
         visible_pairs=pairs,
         shape=f"q={tuple(q.shape)} kv={tuple(k.shape)} causal={causal} "
               f"window={window}")
@@ -2224,14 +2261,17 @@ def lm_family_steps(torch, dev, fa_ops):
 def lm_train_gate(torch, cfg, model, batch, fa_ops):
     """Phase 9 c's gate: one microbatch's loss and gradients (no
     optimizer) with K4 and its backward, then with autograd through the
-    plain attention (``_attend_plain``) on the card, then once more with
-    K4's backward planted to give zeros (the fault this slice repairs:
-    attention's dq, dk, dv lost); each side's gradients freed before the
-    next runs.  Each side reads the loss, the whole model's gradient norm
-    and the norm of each q, k and v projection's gradients over every
-    layer; the kernels' readings must agree with the plain ones within
-    ``LM_TRAIN_GATE``, and the fault's gradient readings must not (the
-    fault leaves the loss, a forward reading, as it is)."""
+    plain attention (``_attend_plain``) on the card, then with K4 and its
+    backward again (``repeat``), then once more with K4's backward planted
+    to give zeros (the fault this slice repairs: attention's dq, dk, dv
+    lost); each side's gradients freed before the next runs.  Each side
+    reads the loss, the whole model's gradient norm and the norm of each
+    q, k and v projection's gradients over every layer; the kernels'
+    readings must agree with the plain ones within ``LM_TRAIN_GATE``, and
+    the fault's gradient readings must not (the fault leaves the loss, a
+    forward reading, as it is).  ``repeat`` reports whether the kernel
+    side's readings repeat bit for bit (K4's backward adds nothing by
+    atomics on the tensor cores; the rest of the step may)."""
     from repro_torch.models import attention, steps
     out = {}
     attend, bwd = attention.attend, fa_ops.flash_attention_bwd
@@ -2241,14 +2281,14 @@ def lm_train_gate(torch, cfg, model, batch, fa_ops):
         return attention._attend_plain(q, k, v, causal, window, q_chunk,
                                        q_offset, probs_dtype)
 
-    def zeros(q, k, v, *args):
+    def zeros(q, k, v, *args, **kwargs):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
 
     def norm(gs):
         return float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                     for g in gs)))
     names = [n for n, _ in model.named_parameters()]
-    for side in ("kernels", "plain", "fault"):
+    for side in ("kernels", "plain", "repeat", "fault"):
         if side == "plain":
             attention.attend = plain
         if side == "fault":
@@ -2268,8 +2308,8 @@ def lm_train_gate(torch, cfg, model, batch, fa_ops):
         finally:
             attention.attend, fa_ops.flash_attention_bwd = attend, bwd
     launches = {side: out[side][1:] for side in out}
-    if min(launches["kernels"]) < 1 or max(launches["plain"]) or \
-            launches["fault"][0] < 1:
+    if min(launches["kernels"] + launches["repeat"]) < 1 or \
+            max(launches["plain"]) or launches["fault"][0] < 1:
         raise AssertionError(f"gate: K4 launches (fwd, bwd) by side "
                              f"{launches}")
     want = out["plain"][0]
@@ -2279,8 +2319,12 @@ def lm_train_gate(torch, cfg, model, batch, fa_ops):
                 for k, v in out[side][0].items()}
     gate = {"readings": {side: out[side][0] for side in out},
             "rel_diff": rel("kernels"), "fault_rel_diff": rel("fault"),
-            "tolerance": LM_TRAIN_GATE}
-    if not (all(gate["rel_diff"][k] <= lim
+            "tolerance": LM_TRAIN_GATE,
+            "repeat": {"identical": out["repeat"][0] == out["kernels"][0],
+                       "rel_diff": {k: abs(v - out["kernels"][0][k])
+                                    / abs(out["kernels"][0][k])
+                                    for k, v in out["repeat"][0].items()}}}
+    if not (all(rel(side)[k] <= lim for side in ("kernels", "repeat")
                 for k, lim in LM_TRAIN_GATE.items())
             and all(gate["fault_rel_diff"][k] > LM_TRAIN_GATE[k]
                     for k in ("grad_norm", "attn.wq", "attn.wk",
@@ -2338,6 +2382,7 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fa_ops.launches = fa_ops.bwd_launches = 0
+    fa_ops.bwd_route_launches = dict.fromkeys(fa_ops.ROUTES, 0)
     t0 = time.perf_counter()
     norms = []
     for b in batches:
@@ -2347,12 +2392,15 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / LM_TRAIN_COUNTED
     launches = {"K4_forward": fa_ops.launches,
-                "K4_backward": fa_ops.bwd_launches}
+                "K4_backward": fa_ops.bwd_launches,
+                "K4_backward_by_route": dict(fa_ops.bwd_route_launches)}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     # K4 forward twice per layer and microbatch (the remat forward
-    # recomputes it), backward once
-    want = {"K4_forward": 2 * cfg.n_layers * LM_TRAIN_N_MB * LM_TRAIN_COUNTED,
-            "K4_backward": cfg.n_layers * LM_TRAIN_N_MB * LM_TRAIN_COUNTED}
+    # recomputes it), backward once, on the tensor cores (bf16, hd 128)
+    n_bwd = cfg.n_layers * LM_TRAIN_N_MB * LM_TRAIN_COUNTED
+    want = {"K4_forward": 2 * n_bwd, "K4_backward": n_bwd,
+            "K4_backward_by_route": {"tensor_cores": n_bwd,
+                                     "cuda_cores": 0}}
     if launches != want:
         raise AssertionError(f"lm_train: K4 launches {launches}, expected "
                              f"{want}")
@@ -2368,19 +2416,27 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
         raise AssertionError(f"lm_train: losses {losses}, the first batch "
                              f"again {again}")
     dev_ms = device_ms(prof)
+    # K4's device ms in the profiled step by kernel: the forward, and the
+    # backward's delta pass, dK/dV and dQ kernels (the CUDA-core backward
+    # kernel, which the bf16 step must not run, beside them)
     k4_ms = {kind: sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.key.startswith(prefix)) / 1e3
-             for kind, prefix in (
-                 ("forward", "void (anonymous namespace)::tc::flash_fwd"),
-                 ("backward", "void (anonymous namespace)::bwd::"),
-                 ("backward_stats", "void (anonymous namespace)::stats::"))}
+                       if name in e.key) / 1e3
+             for kind, name in (
+                 ("forward", "::tc::flash_fwd_tc_kernel"),
+                 ("backward_delta", "::pre::flash_bwd_delta_kernel"),
+                 ("backward_dkdv", "::tcb::flash_bwd_dkdv_kernel"),
+                 ("backward_dq", "::tcb::flash_bwd_dq_kernel"),
+                 ("backward_cuda_cores", "::bwd::flash_bwd_kernel"))}
+    k4_ms["backward"] = sum(v for kind, v in k4_ms.items()
+                            if kind.startswith("backward_"))
     # the step's device time by kind: K4, the cuBLAS GEMMs, the rest
     # (elementwise, reductions, copies, fills)
     gemm = sum(e.self_device_time_total for e in prof.key_averages()
                if e.key.startswith(("nvjet", "sm90_xmma", "cutlass"))
                or "gemm" in e.key.lower()) / 1e3
-    by_kind = {"K4": sum(k4_ms.values()), "gemm": gemm,
-               "other": dev_ms - sum(k4_ms.values()) - gemm}
+    k4_total = k4_ms["forward"] + k4_ms["backward"]
+    by_kind = {"K4": k4_total, "gemm": gemm,
+               "other": dev_ms - k4_total - gemm}
     tokens = LM_TRAIN_SEQ * LM_TRAIN_MB * LM_TRAIN_N_MB
     n_mat = n_params - cfg.vocab * cfg.d_model       # the embedding lookup
     pairs = LM_TRAIN_SEQ * (LM_TRAIN_SEQ + 1) // 2
@@ -2423,7 +2479,9 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
         replaces="src/repro/kernels/flash_attention/flash_attention.py:64 "
                  "(the backward of K4; the Pallas kernel has none)",
         launches=launches["K4_backward"],
+        launches_per_step=launches["K4_backward"] // LM_TRAIN_COUNTED,
         **{key: llama[key] for key in (
+            "kernel_route", "design_hd_per_pair",
             "max_abs_err", "largest_entry_err", "tol_ratio", "tolerance",
             "atol_reading",
             "ref_abs_mean", "ref_abs_max", "fault_ratio",
@@ -2443,8 +2501,10 @@ def serve(srv, workload):
 
 def main(argv):
     import torch
-    gnn_only = argv[:1] == ["--gnn-kernels"]
-    pkg = os.path.abspath(argv[1]) if gnn_only and len(argv) > 1 else SRC
+    mode = argv[0] if argv[:1] in (["--gnn-kernels"], ["--lm-kernels"]) \
+        else None
+    gnn_only, lm_only = mode == "--gnn-kernels", mode == "--lm-kernels"
+    pkg = os.path.abspath(argv[1]) if mode and len(argv) > 1 else SRC
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available; nothing was run")
         return 2
@@ -2479,7 +2539,8 @@ def main(argv):
 
     # --- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = build.build_all()
+    libs = build.build_all(("flash_attention", "flash_attention_bwd")
+                           if lm_only else build.KERNELS)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         regs = [ln.strip() for ln in
@@ -2489,6 +2550,20 @@ def main(argv):
                     "spill" in ln and ", 0 bytes spill stores, 0 bytes "
                     "spill loads" not in ln)]
         log(f"[build] {name}: " + (" | ".join(regs) or "(cached)"))
+
+    if lm_only:     # phase 9 a alone, with this package's K4
+        import torch.nn.functional as F
+        rows = [dict(name="flash_attention_bwd",
+                     **k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype))
+                for shape in K4_BWD_SHAPES
+                for dtype in ("bfloat16", "float32")]
+        log(f"[lm_kernels] K4 backward rows of {pkg}: {rows}")
+        print(smi)
+        print(json.dumps({"lm_kernels_of": pkg, "kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # --- 2. edge cases -------------------------------------------------------
     if not gnn_only:

@@ -47,11 +47,17 @@
 //   64 query rows (4 per thread), and 32 at hd 256 (2 per thread): its
 //   float32 accumulator is then 2 x 32 registers a thread, where 64 rows
 //   would take 128, and its shared memory 103 KB, two CTAs to an SM.
+//
+// Under autograd both routes also write each query's log-sum-exp (log2
+// units, from the online softmax's running max and sum) for the backward
+// (flash_attention_bwd.cu), so it need not recompute it; serving passes a
+// null pointer and writes nothing.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "helios_common.cuh"
+#include "helios_wgmma.cuh"
 
 namespace {
 
@@ -67,14 +73,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int HD>
 __host__ __device__ constexpr int block_q() {
   return HD > 128 ? 32 : 64;
-}
-
-// the first key tile, a multiple of kBK, holding a key that a query at
-// position p0 (or later) sees under the window; 0 without one
-__host__ __device__ __forceinline__ int first_key(int p0, int window,
-                                                  int tile) {
-  const int lo = window > 0 ? p0 - window + 1 : 0;
-  return lo > 0 ? lo / tile * tile : 0;
 }
 
 struct Strides {   // element strides of the batch, sequence and head axes
@@ -112,7 +110,8 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int S,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int S,
                      int Tk, int H, int G, Strides st, float scale_log2,
                      int causal, int q_offset, int window) {
   constexpr int kBQ = block_q<HD>();
@@ -237,6 +236,9 @@ __global__ void __launch_bounds__(kThreads)
     const int s = q0 + rg * kRows + i;
     if (s >= S) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (lse != nullptr && cg == 0)   // m is in scaled log2 units here
+      lse[(static_cast<int64_t>(b) * H + h) * S + s] =
+          l[i] > 0.f ? m[i] + log2f(l[i]) : HELIOS_NO_KEY_LSE;
     T* out = o + ((static_cast<int64_t>(b) * S + s) * H + h) * HD;
 #pragma unroll
     for (int c = 0; c < kDims; ++c)
@@ -245,9 +247,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int Tk, int H, int K, const Strides& st, int causal, int q_offset,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tk, int H, int K, const Strides& st, int causal,
+           int q_offset, int window, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   constexpr int bq = block_q<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -257,7 +259,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid(B * H, (S + bq - 1) / bq);
   flash_fwd_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H, H / K, st,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Tk, H, H / K, st,
       scale * kLog2e, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -266,14 +268,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 // take the tensor-core route, so no CUDA-core instance is built for them)
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                int B, int S, int Tk, int H, int K, const Strides& st,
-                int causal, int q_offset, int window, float scale,
-                cudaStream_t s) {
+                float* lse, int B, int S, int Tk, int H, int K,
+                const Strides& st, int causal, int q_offset, int window,
+                float scale, cudaStream_t s) {
 #define HELIOS_FA_CASE(D)                                                     \
   case D:                                                                     \
     if constexpr (sizeof(T) == 4 || D <= 32 || D == 256)                      \
-      return launch<T, D>(q, k, v, o, B, S, Tk, H, K, st, causal, q_offset,   \
-                          window, scale, s);                                  \
+      return launch<T, D>(q, k, v, o, lse, B, S, Tk, H, K, st, causal,        \
+                          q_offset, window, scale, s);                        \
     break;
   switch (hd) {
     HELIOS_FA_CASE(8)
@@ -346,160 +348,6 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
 };
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes to this point of
-// the program, so the compiler neither reads them early nor reuses them.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (64 x 128, f32) = or += A (64 x 16, smem, K-major) * B (128 x 16, smem,
-// K-major)^T; scale_d == 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem,
-// MN-major: the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem,
-// MN-major: the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-
-template <int HDP>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HDP / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (HDP == 64)
-    wgmma_rs_n64(d, a, b);
-  else
-    wgmma_rs_n128(d, a, b);
-}
-
-// 2^x by the special-function unit; a result below 2^-126 (a probability
-// that small next to the row's largest) flushes to 0.  exp2f would spend
-// a few more instructions per score keeping such denormals.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // grid (B * H, ceil(S / kBQ)); block kThreads; dynamic smem
 // Layout<HDP>::kBytes.  The tensor maps view q, k, v as (hd, rows, heads,
 // batch), innermost first, in boxes of 64 columns x kBQ (q) or kBK (k, v)
@@ -514,7 +362,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap,
-                        __nv_bfloat16* __restrict__ o, int S, int Tk, int H,
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ lse, int S, int Tk, int H,
                         int G, int hd, float scale_log2, int causal,
                         int q_offset, int window) {
   using L = Layout<HDP>;
@@ -686,6 +535,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int sq = row + 8 * r;
       if (sq >= S) continue;
       const float inv = lr > 0.f ? 1.f / lr : 0.f;
+      if (lse != nullptr && lane % 4 == 0)
+        lse[(static_cast<int64_t>(b) * H + h) * S + sq] =
+            lr > 0.f ? m[r] * scale_log2 + log2f(lr) : HELIOS_NO_KEY_LSE;
       __nv_bfloat16* out = o + ((static_cast<int64_t>(b) * S + sq) * H + h) *
                                    hd;
 #pragma unroll
@@ -700,34 +552,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// A (batch, rows, heads, hd) bf16 tensor with the given element strides as
-// a 4-D map (hd, rows, heads, batch), boxes of 64 columns x box_rows rows,
-// 128-byte swizzle, zero fill out of bounds.
-CUresult make_map(CUtensorMap* map, const void* ptr, int batch, int rows,
-                  int heads, int hd, int64_t s_batch, int64_t s_row,
-                  int64_t s_head, int box_rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_row) * 2,
-                                 static_cast<cuuint64_t>(s_head) * 2,
-                                 static_cast<cuuint64_t>(s_batch) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int HDP>
 int launch(const CUtensorMap& qm, const CUtensorMap& km,
-           const CUtensorMap& vm, void* o, int B, int S, int Tk, int H,
-           int K, int hd, int causal, int q_offset, int window, float scale,
-           cudaStream_t stream) {
+           const CUtensorMap& vm, void* o, float* lse, int B, int S, int Tk,
+           int H, int K, int hd, int causal, int q_offset, int window,
+           float scale, cudaStream_t stream) {
   constexpr int bytes = Layout<HDP>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -735,7 +564,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_fwd_tc_kernel<HDP><<<grid, kThreads, bytes, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), S, Tk, H, H / K, hd,
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, H / K, hd,
       scale * 1.4426950408889634f, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -747,14 +576,18 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
 // The CUDA-core route: q (B, S, H, hd), k and v (B, T, K, hd), with the
 // given element strides of their batch, sequence and head axes (hd
 // contiguous); o (B, S, H, hd) contiguous, same dtype (float32 when
-// is_bf16 == 0, else bfloat16).  hd is 8, 16, 32, 64, 80, 96, 112, 128 or
+// is_bf16 == 0, else bfloat16); lse (B, H, S) float32 or null: each
+// query's log-sum-exp of its scaled scores in log2 units, the statistic the
+// backward reads (HELIOS_NO_KEY_LSE for a query that sees no key); null
+// writes none.  hd is 8, 16, 32, 64, 80, 96, 112, 128 or
 // 256 for float32 (the model widths, and the reduced configs' 8) and 8, 16,
 // 32 or 256 for bfloat16; H % K == 0.  window > 0: a query at position p
 // sees only keys t > p - window.  Returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for an unsupported hd).
 extern "C" int helios_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
-    int S, int T, int H, int K, int hd, int64_t q_sb, int64_t q_ss,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int is_bf16, int B, int S, int T, int H, int K, int hd, int64_t q_sb,
+    int64_t q_ss,
     int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb,
     int64_t v_ss, int64_t v_sh, int causal, int q_offset, int window,
     float scale, void* stream) {
@@ -762,24 +595,27 @@ extern "C" int helios_flash_attention(
   if (T <= 0 || K <= 0 || H % K) return static_cast<int>(cudaErrorInvalidValue);
   const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, T, H, K, st,
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, l, B, S, T, H, K, st,
                                       causal, q_offset, window, scale, s);
-  return dispatch_hd<float>(hd, q, k, v, o, B, S, T, H, K, st, causal,
+  return dispatch_hd<float>(hd, q, k, v, o, l, B, S, T, H, K, st, causal,
                             q_offset, window, scale, s);
 }
 
 // The tensor-core route: q (B, S, H, hd), k and v (B, T, K, hd), bf16, with
 // the given element strides of their batch, sequence and head axes (hd
 // contiguous; base pointers and strides 16-byte multiples, as TMA reads
-// them); o (B, S, H, hd) contiguous bf16.  hd is 64, 80, 96, 112 or 128;
+// them); o (B, S, H, hd) contiguous bf16; lse as above.  hd is 64, 80, 96,
+// 112 or 128;
 // H % K == 0; window as above.  Returns cudaGetLastError() after the launch
 // (cudaErrorInvalidValue for an unsupported shape), or minus the CUresult
 // when a tensor map cannot be built (-1000 when the driver has no
 // cuTensorMapEncodeTiled).
 extern "C" int helios_flash_attention_tc(
-    const void* q, const void* k, const void* v, void* o, int B, int S, int T,
-    int H, int K, int hd, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int S, int T, int H, int K, int hd, int64_t q_sb, int64_t q_ss,
+    int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, int causal, int q_offset, int window, float scale,
     void* stream) {
@@ -789,16 +625,17 @@ extern "C" int helios_flash_attention_tc(
     return static_cast<int>(cudaErrorInvalidValue);
   if (!encode_tiled()) return -1000;
   CUtensorMap qm, km, vm;
-  CUresult r = tc::make_map(&qm, q, B, S, H, hd, q_sb, q_ss, q_sh, tc::kBQ);
+  CUresult r = make_map(&qm, q, B, S, H, hd, q_sb, q_ss, q_sh, tc::kBQ);
   if (r == CUDA_SUCCESS)
-    r = tc::make_map(&km, k, B, T, K, hd, k_sb, k_ss, k_sh, tc::kBK);
+    r = make_map(&km, k, B, T, K, hd, k_sb, k_ss, k_sh, tc::kBK);
   if (r == CUDA_SUCCESS)
-    r = tc::make_map(&vm, v, B, T, K, hd, v_sb, v_ss, v_sh, tc::kBK);
+    r = make_map(&vm, v, B, T, K, hd, v_sb, v_ss, v_sh, tc::kBK);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (hd == 64)
-    return tc::launch<64>(qm, km, vm, o, B, S, T, H, K, hd, causal, q_offset,
-                          window, scale, s);
-  return tc::launch<128>(qm, km, vm, o, B, S, T, H, K, hd, causal, q_offset,
-                         window, scale, s);
+    return tc::launch<64>(qm, km, vm, o, l, B, S, T, H, K, hd, causal,
+                          q_offset, window, scale, s);
+  return tc::launch<128>(qm, km, vm, o, l, B, S, T, H, K, hd, causal,
+                         q_offset, window, scale, s);
 }

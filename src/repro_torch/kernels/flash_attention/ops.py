@@ -25,11 +25,15 @@ through their strides (no copy); only the head dimension must be
 contiguous.
 
 Under autograd (grad enabled and an input that requires grad) a CUDA call
-goes through ``FlashAttentionFn``: the same forward launch, and a backward
-that is a kernel too, ``csrc/flash_attention_bwd.cu`` (``flash_attention_
-bwd``: a statistics pre-pass, then dq, dk, dv in float32 on the CUDA
-cores, every form the forward takes), counted in ``bwd_launches``.  On the
-CPU autograd runs through the plain version.
+goes through ``FlashAttentionFn``: the same forward launch, which also
+writes each query's log-sum-exp (``flash_attention_fwd``), and a backward
+that is a kernel too, ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd``: a pre-pass for rowsum(dO * O), then the
+gradients on the forward's route: on the tensor cores a dK/dV kernel and a
+dQ kernel with no atomics, on the CUDA cores one float32 kernel that adds
+dQ by atomics), counted in ``bwd_launches`` and by route in
+``bwd_route_launches``.  On the CPU autograd runs through the plain
+version.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
 
 ROUTES = ("tensor_cores", "cuda_cores")
 launches = 0    # kernel launches since the last reset (chip_smoke reads it)
@@ -47,15 +51,21 @@ route_launches = dict.fromkeys(ROUTES, 0)   # the same, per route
 # (causal, window, S == T) -> launches: an encoder's self-attention, a
 # decoder's, a cross-attention and a local one tell apart
 launches_by_use: dict = {}
-bwd_launches = 0   # backward calls (pre-pass + gradient kernel each)
+bwd_launches = 0   # backward calls (the pre-pass and its gradient kernels)
+bwd_route_launches = dict.fromkeys(ROUTES, 0)   # the same, per route
 HEAD_DIMS = (8, 16, 32, 64, 80, 96, 112, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (64, 80, 96, 112, 128)
 TMA_ALIGN = 16    # bytes: TMA reads base pointers and strides of this unit
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
+# q, k, v, o, lse; is_bf16, B, S, T, H, K, hd; 9 strides; causal, q_offset,
+# window; scale, stream
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
          + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
-_ARGS_TC = _ARGS[:4] + _ARGS[5:]    # no dtype flag: bf16 only
-_ARGS_BWD = [ctypes.c_void_p] * 10 + _ARGS[4:]   # + o, do and 4 buffers
+_ARGS_TC = _ARGS[:5] + _ARGS[6:]    # no dtype flag: bf16 only
+# q, k, v, o, do, lse, delta, dq, dk, dv, then as the forward's from is_bf16
+_ARGS_BWD = [ctypes.c_void_p] * 10 + _ARGS[5:]
+# the tensor cores': no dtype flag, and lse's and delta's row stride after hd
+_ARGS_BWD_TC = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + _ARGS_TC[11:]
 
 
 def _lib() -> ctypes.CDLL:
@@ -71,6 +81,8 @@ def _lib_bwd() -> ctypes.CDLL:
     lib = build.load("flash_attention_bwd")
     lib.helios_flash_attention_bwd.argtypes = _ARGS_BWD
     lib.helios_flash_attention_bwd.restype = ctypes.c_int
+    lib.helios_flash_attention_bwd_tc.argtypes = _ARGS_BWD_TC
+    lib.helios_flash_attention_bwd_tc.restype = ctypes.c_int
     return lib
 
 
@@ -96,6 +108,13 @@ def pick_route(dtype: torch.dtype, hd: int, layouts) -> str:
                 f"of {unit} elements; got pointer {ptr:#x}, shape "
                 f"{tuple(shape)}, strides {tuple(stride)}")
     return "tensor_cores"
+
+
+def route_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``pick_route`` for the tensors themselves: the route of the forward
+    and of the backward on (q, k, v)."""
+    return pick_route(q.dtype, q.shape[3], [(t.data_ptr(), t.shape,
+                                             t.stride()) for t in (q, k, v)])
 
 
 def _tma_strides(t: torch.Tensor) -> list[int]:
@@ -155,22 +174,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, q_offset, window)
-    return _forward(q, k, v, causal, q_offset, window)
+    return _forward(q, k, v, causal, q_offset, window)[0]
 
 
-def _forward(q, k, v, causal, q_offset, window) -> torch.Tensor:
-    """One forward launch on CUDA tensors (no autograd record)."""
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, q_offset: int = 0,
+                        window: int = 0):
+    """``(o, lse)``: ``flash_attention``'s output (no autograd record) and
+    each query's log-sum-exp of its scaled scores in log2 units, (B, H, S)
+    float32, ``+inf`` for a query that sees no key (``ref.lse_ref``): what
+    the forward saves for ``flash_attention_bwd``.  One forward launch on
+    CUDA tensors, the plain versions on CPU tensors."""
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    if q.device.type == k.device.type == v.device.type == "cpu":
+        return (attention_ref(q, k, v, causal, q_offset, window),
+                lse_ref(q, k, causal, q_offset, window))
+    return _forward(q, k, v, causal, q_offset, window, with_lse=True)
+
+
+def _forward(q, k, v, causal, q_offset, window, with_lse=False):
+    """One forward launch on CUDA tensors (no autograd record): ``(o,
+    lse)``, lse None unless ``with_lse``."""
     global launches
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    route = pick_route(q.dtype, hd, [(t.data_ptr(), t.shape, t.stride())
-                                     for t in (q, k, v)])
+    route = route_of(q, k, v)
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     lib = _lib()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if lse is None else lse.data_ptr())
     tail = (int(causal), int(q_offset), int(window), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     if route == "tensor_cores":
@@ -190,38 +228,48 @@ def _forward(q, k, v, causal, q_offset, window) -> torch.Tensor:
     route_launches[route] += 1
     use = (bool(causal), int(window), S == T)
     launches_by_use[use] = launches_by_use.get(use, 0) + 1
-    return out
+    return out, lse
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """K4 under autograd on the card: the forward kernel, and the backward
-    kernel for its gradient.  Saves q, k, v and the output; under
-    ``torch.utils.checkpoint`` the forward is launched again inside the
-    backward."""
+    kernels for its gradient.  Saves q, k, v, the output and each query's
+    log-sum-exp; under ``torch.utils.checkpoint`` the forward is launched
+    again inside the backward and saves its own."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, window):
-        o = _forward(q, k, v, causal, q_offset, window)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = _forward(q, k, v, causal, q_offset, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, q_offset, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        return (*flash_attention_bwd(q, k, v, o, do, *ctx.args),
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, do, *ctx.args, lse=lse),
                 None, None, None)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a ``TMA_ALIGN``-byte aligned address (a copy
+    where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % TMA_ALIGN == 0 else t.clone()
+
+
 def flash_attention_bwd(q, k, v, o, do, causal: bool = True,
-                        q_offset: int = 0, window: int = 0):
+                        q_offset: int = 0, window: int = 0, *, lse=None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal, q_offset,
-    window)`` given its output ``o`` and the output's gradient ``do``, in
-    the inputs' dtype; dk and dv summed over the query heads that share a
-    kv head.  On CUDA tensors: the backward kernel (P recomputed in float32
-    from q and k, float32 accumulation, dq through a float32 buffer then
-    cast); on CPU tensors: autograd through the plain version, the
-    gradient the kernel is held to (``o`` unused)."""
+    window)`` given its output ``o``, the output's gradient ``do`` and, on
+    CUDA tensors, each query's log-sum-exp ``lse`` as ``flash_attention_
+    fwd`` returns it; in the inputs' dtype, dk and dv summed over the query
+    heads that share a kv head.  On CUDA tensors: the backward kernels of
+    ``route_of(q, k, v)``, P recomputed from q, k and lse, float32 sums
+    (the tensor cores round P and dS to bf16 before each product and write
+    dq once; the CUDA cores add dq into a float32 buffer, then cast); on
+    CPU tensors: autograd through the plain version, the gradient the
+    kernels are held to (``o`` and ``lse`` unused)."""
     global bwd_launches
     if window < 0:
         raise ValueError(f"flash_attention_bwd: window {window} < 0")
@@ -238,26 +286,50 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True,
             raise ValueError(f"flash_attention_bwd: {name} {tuple(t.shape)} "
                              f"{t.dtype} on {t.device} is not q's "
                              f"{tuple(q.shape)} {q.dtype} on {q.device}")
-    o, do = o.contiguous(), do.contiguous()
+    if lse is None or lse.shape != (B, H, S) or \
+            lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(
+            "flash_attention_bwd: needs the forward's log-sum-exp, (B, H, S) "
+            f"float32 on {q.device} (flash_attention_fwd); got "
+            f"{None if lse is None else (tuple(lse.shape), lse.dtype)}")
+    route = route_of(q, k, v)
+    tc = route == "tensor_cores"
+    # the tensor cores read lse and delta by TMA as rows of a multiple of 4
+    # floats (16 bytes)
+    ld = -(-S // 4) * 4 if tc else S
+    if ld != S:
+        lse = torch.nn.functional.pad(lse, (0, ld - S))
+    o, do, lse = _aligned(o), _aligned(do), _aligned(lse)
     dev = q.device
-    dq = torch.zeros((B, S, H, hd), dtype=torch.float32, device=dev)
-    # the kernel writes every entry of dk and dv; with no query it is not
+    # the tensor cores write dq once in q's dtype; the CUDA cores add it
+    # into a zeroed float32 buffer
+    dq = (torch.empty((B, S, H, hd), dtype=q.dtype, device=dev) if tc else
+          torch.zeros((B, S, H, hd), dtype=torch.float32, device=dev))
+    # the kernels write every entry of dk and dv; with no query nothing is
     # launched and they are zeros
     alloc = torch.empty if dq.numel() else torch.zeros
     dk = alloc((B, T, K, hd), dtype=q.dtype, device=dev)
     dv = alloc((B, T, K, hd), dtype=q.dtype, device=dev)
     if dq.numel():
-        lse = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-        delta = torch.empty_like(lse)
+        delta = torch.empty((B, H, ld), dtype=torch.float32, device=dev)
         lib = _lib_bwd()
-        rc = lib.helios_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16),
-            B, S, T, H, K, hd,
-            *[t.stride(i) for t in (q, k, v) for i in (0, 1, 2)],
-            int(causal), int(q_offset), int(window), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(dev).cuda_stream)
+        ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk,
+                                       dv)]
+        tail = (int(causal), int(q_offset), int(window), 1.0 / math.sqrt(hd),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if tc:
+            rc = lib.helios_flash_attention_bwd_tc(
+                *ptrs, B, S, T, H, K, hd, ld,
+                *[s for t in (q, k, v) for s in _tma_strides(t)], *tail)
+            if rc < 0:
+                raise RuntimeError(
+                    f"flash_attention_bwd: no TMA descriptor (CUresult "
+                    f"{-rc}; 1000: the driver has no cuTensorMapEncodeTiled)")
+        else:
+            rc = lib.helios_flash_attention_bwd(
+                *ptrs, int(q.dtype == torch.bfloat16), B, S, T, H, K, hd,
+                *[t.stride(i) for t in (q, k, v) for i in (0, 1, 2)], *tail)
         build.check(lib, rc, "flash_attention_bwd")
         bwd_launches += 1
+        bwd_route_launches[route] += 1
     return dq.to(q.dtype), dk, dv

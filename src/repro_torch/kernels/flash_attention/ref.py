@@ -38,3 +38,21 @@ def attention_ref(q, k, v, causal: bool = True, q_offset: int = 0,
         p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def lse_ref(q, k, causal: bool = True, q_offset: int = 0, window: int = 0):
+    """Each query's log-sum-exp of its scaled scores q k^T / sqrt(hd) over
+    the keys ``visible`` lets it see, in log2 units, as the kernels' forward
+    saves it for the backward: (B, H, S) float32, ``+inf`` for a query
+    that sees no key (so that a recomputed exp2(s - lse) is 0 there)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, S, K, H // K, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * (
+        1.0 / math.sqrt(hd))
+    if causal or window:
+        mask = visible(S, T, causal, q_offset, window, q.device)
+        s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1) / math.log(2.0)
+    lse = lse.masked_fill(lse == float("-inf"), float("inf"))
+    return lse.reshape(B, H, S)

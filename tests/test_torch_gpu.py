@@ -421,8 +421,8 @@ def test_gpu_server_matches_cpu(store):
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import \
-    attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref, lse_ref)
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv_ref  # noqa: E402
 from repro_torch.models import lm, steps  # noqa: E402
@@ -961,16 +961,21 @@ def _k4_bwd_check(q, k, v, causal, q_offset, window, g, fault=False):
     """The K4 autograd Function's dq, dk, dv against autograd through the
     plain version on the same card tensors, every entry within
     ``K4_BWD_TOL`` and the largest error within ``K4_BWD_LARGEST``; one
-    forward and one backward launch counted.  With
+    forward and one backward launch counted, the backward on the route its
+    dtype and width call for (bf16 at 64-128: the tensor cores).  With
     ``fault``, one tile of 64 keys of dk, then of dv, zeroed from the
     middle key on must fail the same check."""
     do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    route = ("tensor_cores" if q.dtype == torch.bfloat16
+             and q.shape[3] in fa_ops.TENSOR_CORE_HEAD_DIMS else "cuda_cores")
     f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    r0 = fa_ops.bwd_route_launches[route]
     out, *got = _k4_grads(q, k, v, do, causal, q_offset, window,
                           fa_ops.flash_attention)
     torch.cuda.synchronize()
     assert out.grad_fn is not None
     assert (fa_ops.launches, fa_ops.bwd_launches) == (f0 + 1, b0 + 1)
+    assert fa_ops.bwd_route_launches[route] == r0 + 1, route
     _, *want = _k4_grads(q, k, v, do, causal, q_offset, window,
                          attention_ref)
     rtol, atols = K4_BWD_TOL[q.dtype]
@@ -1090,3 +1095,67 @@ def test_gpu_wkv_refuses_grad():
     with torch.no_grad():
         y, _ = wkv_ops.wkv(r, k, v, logw, u)
     assert wkv_ops.launches == before + 1 and y.grad_fn is None
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 80),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 256),
+                                      (torch.float32, 128),
+                                      (torch.float32, 8)])
+def test_gpu_flash_attention_saves_lse(dtype, hd):
+    """The forward's saved log-sum-exp (``flash_attention_fwd``) on both
+    routes against ``lse_ref`` on the same card tensors: within 1e-4 of 1
+    + |lse| (float32 scores, each route's own summation order), +inf
+    exactly where a query sees no key (a window past the last keys), and
+    the output the same as ``flash_attention``'s, bit for bit."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(hd)
+    for S, T, causal, q_offset, window in ((200, 200, True, 0, 0),
+                                           (37, 150, False, 0, 0),
+                                           (24, 60, True, 70, 16),
+                                           (129, 300, True, 171, 0)):
+        q = torch.randn(2, S, 6, hd, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(2, T, 2, hd, generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        route = fa_ops.route_of(q, k, v)
+        before = fa_ops.route_launches[route]
+        o, lse = fa_ops.flash_attention_fwd(q, k, v, causal, q_offset,
+                                            window)
+        torch.cuda.synchronize()
+        assert fa_ops.route_launches[route] == before + 1
+        want = lse_ref(q, k, causal, q_offset, window)
+        none = torch.isinf(want)
+        assert torch.equal(torch.isinf(lse), none) and (lse[none] > 0).all()
+        err = (lse[~none] - want[~none]).abs() / (1 + want[~none].abs())
+        assert float(err.max()) <= 1e-4, (S, T, route, float(err.max()))
+        assert torch.equal(o, fa_ops.flash_attention(q, k, v, causal,
+                                                     q_offset, window))
+
+
+def test_gpu_flash_attention_bwd_repeats_bit_for_bit():
+    """The tensor-core backward adds nothing by atomics: the same backward
+    twice on the same inputs gives identical dq, dk and dv, at llama's
+    GQA shape (causal) and at a ragged windowed one with q/k/v views of
+    one packed projection."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(1, 333, 12 + 2 * 4, 128, generator=g,
+                      device=dev).to(torch.bfloat16)
+    cases = [
+        tuple(torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+              for shape in ((2, 1024, 24, 128), (2, 1024, 8, 128),
+                            (2, 1024, 8, 128))) + (True, 0, 0),
+        (qkv[:, :, :12], qkv[:, :, 12:16], qkv[:, :, 16:], True, 0, 100)]
+    for q, k, v, causal, q_offset, window in cases:
+        do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        o, lse = fa_ops.flash_attention_fwd(q, k, v, causal, q_offset,
+                                            window)
+        before = fa_ops.bwd_route_launches["tensor_cores"]
+        a, b = (fa_ops.flash_attention_bwd(q, k, v, o, do, causal, q_offset,
+                                           window, lse=lse)
+                for _ in range(2))
+        torch.cuda.synchronize()
+        assert fa_ops.bwd_route_launches["tensor_cores"] == before + 2
+        for x, y in zip(a, b):
+            assert torch.isfinite(x.float()).all() and torch.equal(x, y)

@@ -8,14 +8,18 @@ train step (K4 forward and backward) at full width.
     python3 chip_smoke.py
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
                                                     # of another checkout
-    python3 chip_smoke.py --lm-kernels OTHER/src    # phases 1 and 9 a only,
+    python3 chip_smoke.py --lm-kernels OTHER/src    # phase 1, K4's forward
+                                                    # rows and phase 9 a,
                                                     # of another checkout
 
 Imports nothing of JAX and nothing of the reference package.  Phases; any
 failure raises and the script exits non-zero:
 
   1. build   — compile every CUDA kernel of both paths from src/repro_torch/
-               csrc with nvcc for sm_90a (one process per source, at once);
+               csrc with nvcc for sm_90a (one process per source, at once),
+               print each kernel's registers and spills, and fail if the
+               hd-256 tensor-core forward (``flash_fwd_tc_kernel<256>``)
+               spills;
   2. edges   — each kernel against its plain PyTorch version on the card
                at the edge cases (K1: B in {1, 1023, 1024, 1025, 65,537,
                150,000}, mixed tiers with remote and out-of-range ids,
@@ -36,8 +40,11 @@ failure raises and the script exits non-zero:
                S=4096 at one GQA shape; hd 96, 112 and 256 at S 1 and 129
                (GQA 10) and the q_offset case; windows of 1, 127, 128 and
                129 at hd 64, 128 and 256, causal or not, and 64 at the
-               q_offset case; whisper's non-causal 64 x 1500, 1500 x 1500
-               and 37 x 611 at hd 64; recurrentgemma's S 4096 at window
+               q_offset case; at hd 256 (64-key tiles on the tensor cores)
+               also windows of 63, 64 and 65 and ragged T % 64 != 0 (333 x
+               333 causal, 37 x 611 non-causal); whisper's non-causal 64 x
+               1500, 1500 x 1500 and 37 x 611 at hd 64; recurrentgemma's S
+               4096 at window
                2048 (hd 256, MQA); f32 and bf16, each call on the route
                its dtype and width call for; K5:
                N in {8, 16, 32, 64}, T in {0, 1, 5, 17, 64, 1000}, logw at
@@ -145,24 +152,32 @@ failure raises and the script exits non-zero:
                must launch once per attention layer (28, 24, 8 windowed,
                32, 36 = 12 encoder + 12 self + 12 cross, 1), K5 once per
                rwkv layer (32), every bf16 K4 launch on the route its
-               head width calls for (the tensor cores at 64-128, the CUDA
-               cores at recurrentgemma's 256), and K4's own count by use
+               head width calls for (the tensor cores at 64-256, so
+               recurrentgemma's 256 too), and K4's own count by use
                (causal, window, S == T) as ``k4_uses_for`` expects; phase
-               7's K4 rows take their launches from it.  Prefill ms,
-               decode ms per token, tok/s, peak memory, then one profiled
-               prefill and 4 profiled decode steps for the device's busy
-               share and its top operations;
+               7's K4 rows take their launches from it.  Prefill ms (and
+               a second prefill's: the first at the full prompt also
+               grows the caching allocator), decode ms per token, tok/s,
+               peak memory, then one profiled prefill (its wall and
+               device ms, K4's device ms) and 4 profiled decode steps
+               for the device's busy share and its top operations;
   7. kernels — K4 and K5 against their plain versions on the inputs the
                llm runs gave them (K4: llama layer 0, recurrentgemma's
                first attention layer with its window and, beside it, the
                same inputs without, phi-3-vision and kimi-k2 layer 0,
                whisper's encoder layer 0 and decoder layer 0's
-               cross-attention; K5: rwkv layer 0; bf16 K4 rows within
-               2^-6, each with its largest and mean |output|), timed as
+               cross-attention; K5: rwkv layer 0; K4 entry by entry
+               within ``K4_FWD_TOL`` (scaled by each output row's mean
+               magnitude), a planted fault (a key
+               tile of V zeroed; with a window, the band 64 keys short)
+               failing that, and the largest error within 2^-6 in bf16,
+               each row with its largest and mean |output|), timed as
                in phase 4, with SDPA as K4's library yardstick (given the
                boolean mask where there is a window); the windowed K4
                must take less time than the same inputs without the
-               window (each entry names its route, ``kernel_route``);
+               window, and llama's and recurrentgemma's rows must run on
+               the tensor cores (each entry names its route,
+               ``kernel_route``);
   8. cpu     — prefill and 8 decode steps at .reduced() width on the card
                and on the CPU (plain versions), every family
                (recurrentgemma at window 8 over a 24-token prompt), float32
@@ -179,8 +194,10 @@ failure raises and the script exits non-zero:
                over 1500 frames, non-causal), recurrentgemma's window
                (hd 256, MQA, window 2048, S 4096) and a ragged hd-8
                shape: each on the route its dtype and width call for
-               (``kernel_route``: bf16 at hd 64-128 on the tensor cores,
-               from the forward's saved log-sum-exp), every entry of dq,
+               (``kernel_route``: bf16 at hd 64-128 on the tensor cores;
+               bf16 at 256 on the CUDA cores, whose forward runs on the
+               tensor cores; each from the forward's saved log-sum-exp),
+               every entry of dq,
                dk, dv within ``K4_BWD_TOL`` of its plain value
                (``k4_bwd_check``), and one key tile of dk or dv zeroed
                must fail that; timed as in phase 4 beside the plain
@@ -218,8 +235,10 @@ Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 imports the port from DIR (another checkout's ``src``, to time
 two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
 and prints the card, a ``{"gnn_kernels_of": DIR, "kernels": [...]}`` line
-and the last line.  With ``--lm-kernels DIR`` likewise phases 1 and 9 a
-(K4's backward rows, to time two trees' K4 backward in one call), and a
+and the last line.  With ``--lm-kernels DIR`` likewise phase 1, K4's
+forward on seeded inputs at recurrentgemma-2b's layer shape (window 2048)
+and llama3.2-3b's (``LM_KERNEL_SHAPES``), and phase 9 a (K4's backward
+rows), to time two trees' K4 in one call, and a
 ``{"lm_kernels_of": DIR, "kernels": [...]}`` line.  Without a CUDA device,
 or outside a checkout of the repository, it prints no result and exits
 non-zero.
@@ -280,6 +299,15 @@ LM_TRAIN_LR = (3e-4, 100, 1000)
 LM_TRAIN_DATA = os.path.join(ROOT, "build", "smoke_tokens")
 LM_TRAIN_FAMILIES = ("llama3.2-3b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
                      "phi-3-vision-4.2b", "whisper-small")
+# K4's forward on seeded bf16 inputs with ``--lm-kernels`` (the same inputs
+# for any tree): (label, B, S, T, H, K, hd, causal, window), the prefill
+# layer shapes of recurrentgemma-2b (MQA, window 2048) and llama3.2-3b
+LM_KERNEL_SHAPES = (
+    ("recurrentgemma-2b layer 2, window 2048", 4, 4096, 4096, 10, 1, 256,
+     True, 2048),
+    ("llama3.2-3b layer 0", 4, 1024, 1024, 24, 8, 128, True, 0))
+# the kernel that must build with no spill (phase 1): K4's hd-256 forward
+NO_SPILL = ("flash_attention", "flash_fwd_tc_kernelILi256E")
 # K4's backward at the training shapes: (label, B, S, T, H, K, hd, causal,
 # window); the first is llama3.2-3b's layer at train_4k
 K4_BWD_SHAPES = (
@@ -307,6 +335,22 @@ K4_BWD_FLOOR = 1e-4
 # (or of 1, where that is smaller)
 K4_BWD_LARGEST = {"float32": 1e-4, "bfloat16": 2e-2}
 K4_BWD_TILE = 64               # the planted fault: one key tile zeroed
+# K4's forward against its plain version, entry by entry (``k4_fwd_check``):
+# |got - want| <= rtol |want| + atol m + FLOOR, m the mean |want| of the
+# entry's own output row (one query and head): a row is a weighted mean of
+# V's rows, so its rounding noise scales with it, whether it sees 2 keys
+# or 2048.  bf16: both sides round a float32 output to bf16, one step
+# apart at most (2^-7 of |want|; rtol allows two), and the kernel's P,
+# rounded to bf16 before P.V, moves an output by about 2^-9 / sqrt(3) of
+# sqrt(sum p^2 v^2), near 1.4e-3 of m (atol 2^-5 is about twenty times
+# that).  float32: summation order only.  FLOOR: a query that sees no key
+# gets zeros on both sides.  The planted faults drop one tile of keys;
+# LARGEST is the bound of earlier slices on the largest error alone (2^-6:
+# one bf16 step of an output in [2, 4)), kept beside.
+K4_FWD_TOL = {"float32": (1e-5, 1e-3), "bfloat16": (2 ** -6, 2 ** -5)}
+K4_FWD_FLOOR = 1e-6
+K4_FWD_LARGEST = {"float32": 1e-4, "bfloat16": 2 ** -6}
+K4_FWD_TILE = 64
 # phase 9 c's gate, K4 path against the plain attention, relative: the
 # loss, the whole model's gradient norm, and the norm of the q, k and v
 # projections' gradients (each over every layer).  Read on an H100 in two
@@ -364,7 +408,9 @@ def timed(fn, reps=20, warm=3):
     on one input cannot run from L2.  ``events`` brackets each call with
     two CUDA events (launch gaps the host leaves count); ``device`` is the
     call's kernels' and copies' own time from the profiler (CUPTI), less
-    the zeroing, or None where the profiler records no device time.
+    the zeroing, or None where the profiler records no device time or the
+    subtraction leaves none (the zeroing's run alone varies: a call of a
+    few microseconds has read below zero).
     Returns ``(device, events, per_launch)``, the last the call's device
     time per launch (``per_launch``)."""
     import torch
@@ -391,7 +437,7 @@ def timed(fn, reps=20, warm=3):
             scrub.zero_()
         torch.cuda.synchronize()
     dev = (device_ms(both) - device_ms(alone)) / reps
-    return ((dev if device_ms(alone) > 0 else None), event_ms,
+    return ((dev if device_ms(alone) > 0 and dev > 0 else None), event_ms,
             per_launch(both, alone, reps))
 
 
@@ -801,6 +847,12 @@ def phase_edges_llm(torch, dev, fa_ops, fa_ref, wkv_ops, wkv_ref):
                 for causal in (True, False):
                     k4(dtype, tol, 300, 300, hd, 3, causal, 0, window)
             k4(dtype, tol, 100, 612, hd, 3, True, 512, 64)
+        # hd 256's 64-key tiles: windows at a tile's seams, ragged T
+        for window in (63, 64, 65):
+            for causal in (True, False):
+                k4(dtype, tol, 300, 300, 256, 10, causal, 0, window, K=1)
+        k4(dtype, tol, 333, 333, 256, 3, True)
+        k4(dtype, tol, 37, 611, 256, 1, False, K=4)
         for S, T in ((64, 1500), (1500, 1500), (37, 611)):
             k4(dtype, tol, S, T, 64, 1, False, K=12)
     # recurrentgemma's prefill shape in both dtypes: in float32 a key
@@ -884,8 +936,8 @@ def use_name(use):
 
 def k4_routes_for(fa_ops, cfg, n):
     """The routes ``n`` bf16 K4 launches of ``cfg`` take, by head width:
-    the tensor cores at 64-128; the CUDA cores at recurrentgemma's 256,
-    which the tensor-core route does not take yet (ROADMAP queue 2)."""
+    the tensor cores at ``TENSOR_CORE_HEAD_DIMS`` (64-256: every served
+    config, recurrentgemma's 256 too), else the CUDA cores."""
     tc = cfg.head_dim in fa_ops.TENSOR_CORE_HEAD_DIMS
     return {"tensor_cores": n if tc else 0, "cuda_cores": 0 if tc else n}
 
@@ -988,6 +1040,13 @@ def run_llm(torch, dev, cfg, counters, reduced=None):
         if not bool(torch.isfinite(a.float()).all()):
             raise AssertionError(f"{name}: cache {k} is not finite")
 
+    # the same prefill again, unprofiled: the counted one above is the
+    # first at the full prompt, so it also pays for the caching
+    # allocator's growth to it
+    t_again = time.perf_counter()
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    t_again = time.perf_counter() - t_again
     # one profiled prefill and 4 profiled decode steps: busy share, top ops
     with profile(activities=[ProfilerActivity.CUDA]) as pp:
         ta = time.perf_counter()
@@ -1004,6 +1063,7 @@ def run_llm(torch, dev, cfg, counters, reduced=None):
         "config": name, "params": n_params, "dtype": cfg.dtype,
         "batch": B, "prompt": P, "decode_tokens": N, "init_s": init_s,
         "prefill_ms": (t1 - t0) * 1e3,
+        "prefill_ms_again": t_again * 1e3,
         "prefill_tok_s": B * P / (t1 - t0),
         "decode_ms_per_token": (t2 - t1) * 1e3 / N,
         "decode_tok_s": B * N / (t2 - t1),
@@ -1012,6 +1072,12 @@ def run_llm(torch, dev, cfg, counters, reduced=None):
         "k4_expected": {"launches": want["K4"], "routes": want_routes},
         "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
         "prefill_device_busy_share": device_ms(pp) / ((tb - ta) * 1e3),
+        "prefill_profiled_ms": (tb - ta) * 1e3,
+        "prefill_device_ms": device_ms(pp),
+        # K4's kernels (both routes) in the profiled prefill
+        "prefill_k4_device_ms": sum(
+            e.self_device_time_total for e in pp.key_averages()
+            if "flash_fwd" in e.key) / 1e3,
         "decode_device_busy_share": device_ms(pd) / ((td - tc) * 1e3),
         "prefill_device_ms_by_op": top_ops(pp),
         "decode_device_ms_per_token_by_op": top_ops(pd, per=4),
@@ -1028,26 +1094,70 @@ def run_llm(torch, dev, cfg, counters, reduced=None):
     return report, seen
 
 
+def k4_fwd_check(fa_ops, call, got, want):
+    """K4's forward output ``got`` on ``call`` against the plain version's
+    ``want`` (float32), entry by entry: the largest |got - want| / (rtol
+    |want| + atol m + ``K4_FWD_FLOOR``), m the mean |want| of the entry's
+    output row (``tol_ratio``, within 1), with (rtol, atol) from
+    ``K4_FWD_TOL``; ``atol_reading``, the largest (|got - want| - rtol
+    |want|) / (m + floor); and ``fault_ratio``, that ratio of the
+    kernel's own output on planted faults, each of which must exceed 1:
+    V's key tile from the middle key on zeroed and, with a window, the
+    band's oldest ``K4_FWD_TILE`` keys dropped (the window that much
+    shorter).  ``edge_key_ratio``, the band's one oldest key dropped, is
+    read, not held.  The largest outputs belong to the first queries, which
+    see few keys, so a bound on the largest error alone would let a lost
+    tile deep in a long band pass."""
+    q, k, v, causal, q_offset, window = call
+    rtol, atol = K4_FWD_TOL[str(q.dtype).removeprefix("torch.")]
+    row = want.abs().mean(-1, keepdim=True) + K4_FWD_FLOOR
+
+    def ratio(a):
+        return float(((a.float() - want).abs()
+                      / (rtol * want.abs() + atol * row)).max())
+    T, tile = k.shape[1], K4_FWD_TILE
+    lo = (T // 2) // tile * tile
+    v_bad = v.clone()
+    v_bad[:, lo:lo + tile] = 0
+    faults = {f"v keys {lo}:{lo + tile} zeroed": (q, k, v_bad, causal,
+                                                  q_offset, window)}
+    if window > tile:
+        faults[f"window {window - tile}"] = (q, k, v, causal, q_offset,
+                                             window - tile)
+    out = {"tol_ratio": ratio(got),
+           "tolerance": {"rtol": rtol, "atol_of_row_mean": atol,
+                         "floor": K4_FWD_FLOOR},
+           "atol_reading": float((((got.float() - want).abs()
+                                   - rtol * want.abs()) / row).max()),
+           "fault_ratio": {name: ratio(fa_ops.flash_attention(*c))
+                           for name, c in faults.items()}}
+    if window > 1:
+        out["edge_key_ratio"] = ratio(fa_ops.flash_attention(
+            q, k, v, causal, q_offset, window - 1))
+    return out
+
+
 def k4_entry(torch, F, fa_ops, fa_ref, call, launches, label):
-    """K4 on one recorded call's inputs: against its plain version (bf16
-    within 2^-6 = 1.5625e-2, the largest error K4's rows have shown since
-    PR 14: one bf16 step of an output in [2, 4); float32 within 1e-4;
-    the plain output's largest and mean magnitude beside: a missed key at
-    the band's edge moves outputs by less than that bound, which
-    ``phase_edges_llm`` checks in float32 at this shape), timed beside
-    it and SDPA (given
-    the boolean mask where there is a window), with the bound: the
-    operations on the visible pairs over the bf16 peak, or the bytes,
-    whichever is larger."""
+    """K4 on one recorded call's inputs: against its plain version (entry
+    by entry, ``k4_fwd_check``, where planted faults must fail; and the
+    largest error within ``K4_FWD_LARGEST``), the plain output's largest
+    and mean magnitude beside, timed beside it and SDPA (given the boolean
+    mask where there is a window), with the bound: the operations on the
+    visible pairs over the bf16 peak, or the bytes, whichever is
+    larger."""
     q, k, v, causal, q_offset, window = call
     got = fa_ops.flash_attention(q, k, v, causal, q_offset, window)
     torch.cuda.synchronize()
     want = fa_ref.attention_ref(q, k, v, causal, q_offset, window).float()
     err = float((got.float() - want).abs().max())
     ref_max, ref_mean = float(want.abs().max()), float(want.abs().mean())
-    if not err <= (2.0 ** -6 if q.dtype == torch.bfloat16 else 1e-4):
-        raise AssertionError(f"K4 differs on the {label} inputs: {err}")
-    del want
+    check = k4_fwd_check(fa_ops, call, got, want)
+    if not (err <= K4_FWD_LARGEST[str(q.dtype).removeprefix("torch.")]
+            and check["tol_ratio"] <= 1
+            and min(check["fault_ratio"].values()) > 1):
+        raise AssertionError(f"K4 differs on the {label} inputs: largest "
+                             f"error {err}, {check}")
+    del got, want
     B, S, H, hd = q.shape
     T = k.shape[1]
     route = fa_ops.pick_route(q.dtype, hd, [(t.data_ptr(), t.shape,
@@ -1070,7 +1180,7 @@ def k4_entry(torch, F, fa_ops, fa_ref, call, launches, label):
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:64",
         launches=launches, max_abs_err=err, ref_abs_max=ref_max,
-        ref_abs_mean=ref_mean,
+        ref_abs_mean=ref_mean, **check,
         **timing(lambda: fa_ops.flash_attention(q, k, v, causal, q_offset,
                                                 window),
                  lambda: fa_ref.attention_ref(q, k, v, causal, q_offset,
@@ -1080,6 +1190,25 @@ def k4_entry(torch, F, fa_ops, fa_ref, call, launches, label):
         "operations", visible_pairs=pairs, input=label,
         shape=f"q={tuple(q.shape)} kv={tuple(k.shape)} {q.dtype} "
               f"causal={causal} window={window}")
+
+
+def k4_fwd_rows(torch, F, fa_ops, fa_ref):
+    """K4's forward at ``LM_KERNEL_SHAPES`` on seeded bf16 inputs, the
+    same for any tree (``k4_entry``: against the plain version, timed
+    beside it and SDPA, with the bound); no launch of a run is counted."""
+    rows = []
+    for label, B, S, T, H, K, hd, causal, window in LM_KERNEL_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(hd + S)
+        q = torch.randn(B, S, H, hd, generator=g, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn(B, T, K, hd, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        rows.append(k4_entry(torch, F, fa_ops, fa_ref,
+                             (q, k, v, causal, 0, window), 0,
+                             f"{label}, seeded"))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def llm_kernels(torch, F, inputs, report, fa_ops, fa_ref, wkv_ops, wkv_ref):
@@ -1102,6 +1231,9 @@ def llm_kernels(torch, F, inputs, report, fa_ops, fa_ref, wkv_ops, wkv_ref):
     if "recurrentgemma-2b" in inputs:
         rg = one("recurrentgemma-2b", (True, 2048, True),
                  "layer 2 (the first attention layer), window 2048")
+        if rg["kernel_route"] != "tensor_cores":
+            raise AssertionError(f"K4 takes the {rg['kernel_route']} route "
+                                 "on the recurrentgemma-2b inputs")
         q, k, v, _, _, _ = inputs["recurrentgemma-2b"][(True, 2048, True)][0]
         plain = k4_entry(torch, F, fa_ops, fa_ref, (q, k, v, True, 0, 0), 0,
                          "recurrentgemma-2b layer 2 without the window")
@@ -2125,9 +2257,10 @@ def k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype):
     inputs: dq, dk, dv against autograd through the plain version on the
     card (``k4_bwd_check``; a planted fault must fail it), on the route
     its dtype and width call for (``kernel_route``; bf16 at hd 64-128: the
-    tensor cores), timed as in phase 4 beside the plain version's backward
-    and SDPA's (autograd through ``scaled_dot_product_attention`` on the
-    same inputs; the boolean mask where there is a window), each a
+    tensor cores; bf16 at 256 and float32: the CUDA cores), timed as in
+    phase 4 beside the plain version's backward and SDPA's (autograd
+    through ``scaled_dot_product_attention`` on the same inputs; the
+    boolean mask where there is a window), each a
     backward alone (its forward graph built once).  Bound: 10 hd FLOPs per
     visible (query, key) pair and head (S, dP, dV, dK, dQ) over the
     dtype's peak, or the bytes of q, k, v, o, dO read and dq, dk, dv
@@ -2148,9 +2281,12 @@ def k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype):
     torch.cuda.synchronize()
     route = ("cuda_cores" if routes is None else
              next(r for r, n in routes.items() if n != before[r]))
+    # the backward's own widths (a tree before they split from the
+    # forward's has none)
+    widths = getattr(fa_ops, "TENSOR_CORE_BWD_HEAD_DIMS",
+                     fa_ops.TENSOR_CORE_HEAD_DIMS)
     want_route = ("tensor_cores" if routes is not None and dtype ==
-                  "bfloat16" and hd in fa_ops.TENSOR_CORE_HEAD_DIMS
-                  else "cuda_cores")
+                  "bfloat16" and hd in widths else "cuda_cores")
     if route != want_route:
         raise AssertionError(f"K4 backward at {label} {dtype} took {route}")
 
@@ -2543,20 +2679,37 @@ def main(argv):
                            if lm_only else build.KERNELS)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
-        regs = [ln.strip() for ln in
-                path.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln or "arning" in ln
-                or "Performance Loss" in ln or (
-                    "spill" in ln and ", 0 bytes spill stores, 0 bytes "
-                    "spill loads" not in ln)]
-        log(f"[build] {name}: " + (" | ".join(regs) or "(cached)"))
+        if hasattr(build, "ptxas_report"):
+            lines = [f"{n}: {r['registers']} registers, spills "
+                     f"{r['spill_stores']}/{r['spill_loads']} B"
+                     + "".join(f"; {x}" for x in r["notes"])
+                     for n, r in build.ptxas_report(name).items()]
+        else:   # a tree that predates the parser (``--lm-kernels``)
+            lines = [ln.strip() for ln in
+                     path.with_suffix(".log").read_text().splitlines()
+                     if "registers" in ln or "arning" in ln
+                     or "Performance Loss" in ln or (
+                         "spill" in ln and ", 0 bytes spill stores, 0 "
+                         "bytes spill loads" not in ln)]
+        log(f"[build] {name}: " + " | ".join(lines))
+    # such a tree has no hd-256 tensor-core kernel to check either
+    if hasattr(build, "ptxas_report"):
+        lib, kernel = NO_SPILL
+        found = {n: r for n, r in build.ptxas_report(lib).items()
+                 if kernel in n}
+        if not found or any(r["spill_stores"] or r["spill_loads"]
+                            for r in found.values()):
+            raise AssertionError(f"{kernel} spills or is missing from the "
+                                 f"{lib} build log: {found}")
+        log(f"[build] {kernel}: {list(found.values())}")
 
-    if lm_only:     # phase 9 a alone, with this package's K4
+    if lm_only:     # K4's forward rows and phase 9 a, with this package's K4
         import torch.nn.functional as F
-        rows = [dict(name="flash_attention_bwd",
-                     **k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype))
-                for shape in K4_BWD_SHAPES
-                for dtype in ("bfloat16", "float32")]
+        rows = k4_fwd_rows(torch, F, fa_ops, fa_ref)
+        rows += [dict(name="flash_attention_bwd",
+                      **k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype))
+                 for shape in K4_BWD_SHAPES
+                 for dtype in ("bfloat16", "float32")]
         log(f"[lm_kernels] K4 backward rows of {pkg}: {rows}")
         print(smi)
         print(json.dumps({"lm_kernels_of": pkg, "kernels": rows}))

@@ -34,19 +34,18 @@
 // (kernels/flash_attention/ops.py::pick_route):
 //
 // * tensor cores (helios_flash_attention_tc): bf16 at head widths 64, 80,
-//   96, 112 and 128, every bf16 prefill of the served configs but
-//   recurrentgemma-2b's.  wgmma fed by TMA; see the comment above
-//   namespace tc below.
+//   96, 112, 128 and 256, every bf16 prefill of the served configs.  wgmma
+//   fed by TMA; see the comment above namespace tc below.
 // * CUDA cores (helios_flash_attention): float32 at every width, and bf16
-//   at widths 8-32 (the reduced configs) and 256 (recurrentgemma-2b).
-//   Scores, exponentials and P.V in float32 from shared-memory tiles
-//   converted to float32 on load; each thread owns kRows query rows x 4
-//   keys of a score tile and kRows rows x hd/8 output columns, and a row's
-//   8 threads are neighbouring lanes of one warp, so row max and sum are
-//   three shuffles and P stays warp-private in shared memory.  A CTA holds
-//   64 query rows (4 per thread), and 32 at hd 256 (2 per thread): its
-//   float32 accumulator is then 2 x 32 registers a thread, where 64 rows
-//   would take 128, and its shared memory 103 KB, two CTAs to an SM.
+//   at widths 8-32 (the reduced configs).  Scores, exponentials and P.V in
+//   float32 from shared-memory tiles converted to float32 on load; each
+//   thread owns kRows query rows x 4 keys of a score tile and kRows rows x
+//   hd/8 output columns, and a row's 8 threads are neighbouring lanes of
+//   one warp, so row max and sum are three shuffles and P stays
+//   warp-private in shared memory.  A CTA holds 64 query rows (4 per
+//   thread), and 32 at hd 256 (2 per thread): its float32 accumulator is
+//   then 2 x 32 registers a thread, where 64 rows would take 128, and its
+//   shared memory 103 KB, two CTAs to an SM.
 //
 // Under autograd both routes also write each query's log-sum-exp (log2
 // units, from the online softmax's running max and sum) for the backward
@@ -264,8 +263,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 at every width; bf16 only at 8-32 and 256 (bf16 heads of 64-128
-// take the tensor-core route, so no CUDA-core instance is built for them)
+// float32 at every width; bf16 only at 8-32 (bf16 heads of 64-256 take the
+// tensor-core route, so no CUDA-core instance is built for them)
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int Tk, int H, int K,
@@ -273,7 +272,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                 float scale, cudaStream_t s) {
 #define HELIOS_FA_CASE(D)                                                     \
   case D:                                                                     \
-    if constexpr (sizeof(T) == 4 || D <= 32 || D == 256)                      \
+    if constexpr (sizeof(T) == 4 || D <= 32)                                  \
       return launch<T, D>(q, k, v, o, lse, B, S, Tk, H, K, st, causal,        \
                           q_offset, window, scale, s);                        \
     break;
@@ -296,7 +295,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core route: bf16, head widths 64, 80, 96, 112 and 128, on sm_90a.
+// Tensor-core route: bf16, head widths 64, 80, 96, 112, 128 and 256, on
+// sm_90a.
 //
 // One CTA of three warpgroups owns 128 query rows of one (batch, head).
 // Warpgroup 0 is the producer: one thread issues TMA loads — the query tile
@@ -318,15 +318,20 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 //
 // Tiles are stored as the TMA writes them with 128-byte swizzle: a block of
 // 64 head columns (128 bytes) per row, 8-row atoms of 1024 bytes; a width
-// of 128 is two such blocks, and 80, 96 and 112 are padded to 128 by the
-// TMA's out-of-bounds zero fill (the padding columns add zeros to S and are
-// not stored).  The same zero fill covers query rows past S and keys past T;
-// padded keys are masked to -inf as well.
+// of 128 is two such blocks, 256 four, and 80, 96 and 112 are padded to 128
+// by the TMA's out-of-bounds zero fill (the padding columns add zeros to S
+// and are not stored).  The same zero fill covers query rows past S and
+// keys past T; padded keys are masked to -inf as well.
+//
+// At hd 256 (recurrentgemma-2b: 10 query heads on one kv head, a window of
+// 2048) a key tile is 64 keys, not 128: Q (64 KB) and two stages of K and V
+// (2 x 64 KB) then fit the 227 KB a CTA may hold, where 128-key tiles would
+// take 320 KB.  A consumer thread holds O in 128 float32 registers, S in 32
+// and P in 16; P.V is one m64n256k16 wgmma per 16 keys.
 // ---------------------------------------------------------------------------
 namespace tc {
 
 constexpr int kBQ = 128;           // query rows per CTA, 64 per consumer
-constexpr int kBK = 128;           // keys per tile
 constexpr int kStages = 2;         // K/V tiles in flight
 constexpr int kThreads = 384;      // producer + 2 consumer warpgroups
 constexpr int kRow = 128;          // bytes of one swizzled row: 64 bf16
@@ -334,11 +339,18 @@ constexpr int kAtom = 8 * kRow;    // one 8-row swizzle atom
 constexpr int kProducerRegs = 24;  // setmaxnreg: 24 * 128 + 240 * 256
 constexpr int kConsumerRegs = 240; //   <= 65,536 registers of the SM
 
-// Shared-memory layout for a head width padded to HDP (64 or 128), in
+// keys per tile at a head width padded to HDP: 128, and 64 at 256, where
+// two stages of 128-key K and V tiles would not fit beside Q
+__host__ __device__ constexpr int key_tile(int hdp) {
+  return hdp > 128 ? 64 : 128;
+}
+
+// Shared-memory layout for a head width padded to HDP (64, 128 or 256), in
 // bytes from a 1024-aligned base: Q, kStages K tiles, kStages V tiles, then
 // the mbarriers (Q full; per stage K full, V full and empty).
 template <int HDP>
 struct Layout {
+  static constexpr int kBK = key_tile(HDP);            // keys per tile
   static constexpr int kCols = HDP / 64;               // 64-column blocks
   static constexpr int kQBytes = kCols * kBQ * kRow;
   static constexpr int kKVBytes = kCols * kBK * kRow;  // one K or V tile
@@ -367,6 +379,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                         int G, int hd, float scale_log2, int causal,
                         int q_offset, int window) {
   using L = Layout<HDP>;
+  constexpr int kBK = L::kBK;
+  static_assert(L::kBytes <= 232448, "over the 227 KB a CTA may hold");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base, sK = base + L::kK, sV = base + L::kV;
@@ -453,7 +467,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int kk = 0; kk < HDP / 16; ++kk) {
           const uint32_t c = kk / 4, x = (kk % 4) * 32;
-          wgmma_ss_n128(sc, smem_desc(sQw + c * kBQ * kRow + x, 16, kAtom),
+          wgmma_ss<kBK>(sc, smem_desc(sQw + c * kBQ * kRow + x, 16, kAtom),
                         smem_desc(tK + c * kBK * kRow + x, 16, kAtom), kk);
         }
         wgmma_commit();
@@ -507,9 +521,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int x = 0; x < 4; ++x)
             p[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
 
-        // O += P V in kBK / 16 steps of 16 keys (2048 bytes of V each); V
-        // is MN-major: 8-key groups kAtom apart, 64-column blocks a whole
-        // block of kBK rows apart
+        // O += P V in kBK / 16 steps of 16 keys (16 rows of each 64-column
+        // block of V); V is MN-major: 8-key groups kAtom apart, 64-column
+        // blocks a whole block of kBK rows apart
         mbar_wait(v_full(s), parity);
         pin(acc);
         wgmma_fence();
@@ -580,8 +594,8 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
 // query's log-sum-exp of its scaled scores in log2 units, the statistic the
 // backward reads (HELIOS_NO_KEY_LSE for a query that sees no key); null
 // writes none.  hd is 8, 16, 32, 64, 80, 96, 112, 128 or
-// 256 for float32 (the model widths, and the reduced configs' 8) and 8, 16,
-// 32 or 256 for bfloat16; H % K == 0.  window > 0: a query at position p
+// 256 for float32 (the model widths, and the reduced configs' 8) and 8, 16
+// or 32 for bfloat16; H % K == 0.  window > 0: a query at position p
 // sees only keys t > p - window.  Returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for an unsupported hd).
 extern "C" int helios_flash_attention(
@@ -607,11 +621,10 @@ extern "C" int helios_flash_attention(
 // the given element strides of their batch, sequence and head axes (hd
 // contiguous; base pointers and strides 16-byte multiples, as TMA reads
 // them); o (B, S, H, hd) contiguous bf16; lse as above.  hd is 64, 80, 96,
-// 112 or 128;
-// H % K == 0; window as above.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported shape), or minus the CUresult
-// when a tensor map cannot be built (-1000 when the driver has no
-// cuTensorMapEncodeTiled).
+// 112, 128 or 256; H % K == 0; window as above.  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported shape), or minus the CUresult when a tensor map cannot be
+// built (-1000 when the driver has no cuTensorMapEncodeTiled).
 extern "C" int helios_flash_attention_tc(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int S, int T, int H, int K, int hd, int64_t q_sb, int64_t q_ss,
@@ -621,21 +634,27 @@ extern "C" int helios_flash_attention_tc(
     void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (T <= 0 || K <= 0 || H % K ||
-      (hd != 64 && hd != 80 && hd != 96 && hd != 112 && hd != 128))
+      (hd != 64 && hd != 80 && hd != 96 && hd != 112 && hd != 128 &&
+       hd != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   if (!encode_tiled()) return -1000;
+  const int hdp = hd == 64 ? 64 : hd <= 128 ? 128 : 256;   // padded width
+  const int bk = tc::key_tile(hdp);
   CUtensorMap qm, km, vm;
   CUresult r = make_map(&qm, q, B, S, H, hd, q_sb, q_ss, q_sh, tc::kBQ);
   if (r == CUDA_SUCCESS)
-    r = make_map(&km, k, B, T, K, hd, k_sb, k_ss, k_sh, tc::kBK);
+    r = make_map(&km, k, B, T, K, hd, k_sb, k_ss, k_sh, bk);
   if (r == CUDA_SUCCESS)
-    r = make_map(&vm, v, B, T, K, hd, v_sb, v_ss, v_sh, tc::kBK);
+    r = make_map(&vm, v, B, T, K, hd, v_sb, v_ss, v_sh, bk);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (hd == 64)
+  if (hdp == 64)
     return tc::launch<64>(qm, km, vm, o, l, B, S, T, H, K, hd, causal,
                           q_offset, window, scale, s);
-  return tc::launch<128>(qm, km, vm, o, l, B, S, T, H, K, hd, causal,
+  if (hdp == 128)
+    return tc::launch<128>(qm, km, vm, o, l, B, S, T, H, K, hd, causal,
+                           q_offset, window, scale, s);
+  return tc::launch<256>(qm, km, vm, o, l, B, S, T, H, K, hd, causal,
                          q_offset, window, scale, s);
 }

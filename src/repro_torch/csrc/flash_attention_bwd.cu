@@ -15,21 +15,22 @@
 // scale * log2(e) - lse) is recomputed without a pass over the keys.  A
 // pre-pass (flash_bwd_delta_kernel, a warp per query row) computes only
 // delta = rowsum(dO * O), reading the forward's output: bound by the bytes
-// of O and dO.  Then, on the forward's route
-// (kernels/flash_attention/ops.py::route_of):
+// of O and dO.  Then, on the backward's own route
+// (kernels/flash_attention/ops.py::bwd_route_of):
 //
 // * tensor cores (helios_flash_attention_bwd_tc): bf16 at head widths 64,
 //   80, 96, 112 and 128, FlashAttention-3's backward for Hopper (Shah et
 //   al., 2024) split into two kernels so that nothing is added by atomics
 //   and the result is the same from run to run; see namespace tcb below.
 // * CUDA cores (helios_flash_attention_bwd): float32 at every width, bf16
-//   at 8-32 and 256.  FlashAttention-2's backward (Dao, 2023) in float32:
-//   one CTA per (batch, kv head, key tile of 64 keys; 32 at hd 256) keeps
-//   the tile's K and V in shared memory and its dK and dV in registers,
-//   loops over the G query heads of its kv head and over the query tiles
-//   that see its keys (tiles above the causal diagonal and below the window
-//   are never visited), and adds dS K into a float32 dQ buffer with
-//   atomicAdd (the wrapper casts it).
+//   at 8-32 and 256 (whose forward runs on the tensor cores and saves the
+//   log-sum-exp read here).  FlashAttention-2's backward (Dao, 2023) in
+//   float32: one CTA per (batch, kv head, key tile of 64 keys; 32 at hd
+//   256) keeps the tile's K and V in shared memory and its dK and dV in
+//   registers, loops over the G query heads of its kv head and over the
+//   query tiles that see its keys (tiles above the causal diagonal and
+//   below the window are never visited), and adds dS K into a float32 dQ
+//   buffer with atomicAdd (the wrapper casts it).
 //
 // The gradient is the plain version's (autograd through attention_ref,
 // probabilities in float32), but for roundings: delta reads the forward's

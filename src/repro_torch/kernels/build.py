@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -89,6 +90,32 @@ def load(name: str) -> ctypes.CDLL:
             lib.helios_cuda_error_string.restype = ctypes.c_char_p
             lib.helios_cuda_error_string.argtypes = [ctypes.c_int]
         return lib
+
+
+def parse_ptxas(log: str) -> dict:
+    """``{kernel: {"registers": n, "spill_stores": bytes, "spill_loads":
+    bytes, "notes": [line, ...]}}`` from an ``nvcc -Xptxas -v`` log, by
+    mangled kernel name; ``notes`` are the warnings and performance-loss
+    lines ptxas gives while it compiles that kernel."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {"registers": None, "spill_stores": 0,
+                         "spill_loads": 0, "notes": []}
+        elif name and ("arning" in line or "Performance Loss" in line):
+            out[name]["notes"].append(line.strip())
+        elif name and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            out[name].update(spill_stores=int(stores), spill_loads=int(loads))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def ptxas_report(name: str) -> dict:
+    """``parse_ptxas`` of library ``name``'s build log (``build_all``)."""
+    return parse_ptxas(lib_path(name).with_suffix(".log").read_text())
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

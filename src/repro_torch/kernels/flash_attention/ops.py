@@ -4,14 +4,13 @@ On CUDA tensors ``flash_attention`` launches one of two kernels of
 ``csrc/flash_attention.cu``, chosen by ``pick_route`` from the dtype, the
 head width and the alignment of q, k and v:
 
-- ``"tensor_cores"``: bf16 at head widths 64, 80, 96, 112 and 128 — every
-  bf16 prefill of the served configs but recurrentgemma's.  wgmma on the
-  bf16 tensor cores, fed by TMA (widths under 128 padded to 64 or 128 by
-  its zero fill); P is rounded to bf16 before P.V, as the reference model
-  does.
+- ``"tensor_cores"``: bf16 at head widths 64, 80, 96, 112, 128 and 256 —
+  every bf16 prefill of the served configs.  wgmma on the bf16 tensor
+  cores, fed by TMA (widths under 128 padded to 64 or 128 by its zero
+  fill; 64-key tiles at 256); P is rounded to bf16 before P.V, as the
+  reference model does.
 - ``"cuda_cores"``: float32 at every width, and bf16 at widths 8-32 (the
-  reduced configs) and 256 (recurrentgemma-2b).  Scores, softmax and P.V
-  in float32 on the CUDA cores.
+  reduced configs).  Scores, softmax and P.V in float32 on the CUDA cores.
 
 Both take a local-attention ``window`` (query at position p sees keys
 t > p - window) and skip the key tiles that lie wholly below it.
@@ -29,11 +28,12 @@ goes through ``FlashAttentionFn``: the same forward launch, which also
 writes each query's log-sum-exp (``flash_attention_fwd``), and a backward
 that is a kernel too, ``csrc/flash_attention_bwd.cu``
 (``flash_attention_bwd``: a pre-pass for rowsum(dO * O), then the
-gradients on the forward's route: on the tensor cores a dK/dV kernel and a
-dQ kernel with no atomics, on the CUDA cores one float32 kernel that adds
-dQ by atomics), counted in ``bwd_launches`` and by route in
-``bwd_route_launches``.  On the CPU autograd runs through the plain
-version.
+gradients on the backward's own route, ``bwd_route_of``: on the tensor
+cores, bf16 at widths 64-128 only, a dK/dV kernel and a dQ kernel with no
+atomics; on the CUDA cores, bf16 at 256 too (from the log-sum-exp the
+tensor-core forward wrote), one float32 kernel that adds dQ by atomics),
+counted in ``bwd_launches`` and by route in ``bwd_route_launches``.  On
+the CPU autograd runs through the plain version.
 """
 from __future__ import annotations
 
@@ -54,7 +54,8 @@ launches_by_use: dict = {}
 bwd_launches = 0   # backward calls (the pre-pass and its gradient kernels)
 bwd_route_launches = dict.fromkeys(ROUTES, 0)   # the same, per route
 HEAD_DIMS = (8, 16, 32, 64, 80, 96, 112, 128, 256)
-TENSOR_CORE_HEAD_DIMS = (64, 80, 96, 112, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 80, 96, 112, 128, 256)
+TENSOR_CORE_BWD_HEAD_DIMS = (64, 80, 96, 112, 128)   # the backward's
 TMA_ALIGN = 16    # bytes: TMA reads base pointers and strides of this unit
 
 # q, k, v, o, lse; is_bf16, B, S, T, H, K, hd; 9 strides; causal, q_offset,
@@ -88,7 +89,7 @@ def _lib_bwd() -> ctypes.CDLL:
 
 def pick_route(dtype: torch.dtype, hd: int, layouts) -> str:
     """The kernel that takes q, k, v of ``dtype`` and head width ``hd``:
-    ``"tensor_cores"`` for bf16 at widths 64-128, else
+    ``"tensor_cores"`` for bf16 at widths 64-256, else
     ``"cuda_cores"``.  ``layouts`` gives each tensor's ``(data_ptr, shape,
     stride)``, strides in elements.  The tensor-core route loads by TMA,
     which takes only 16-byte-aligned base pointers and strides (the stride
@@ -112,9 +113,18 @@ def pick_route(dtype: torch.dtype, hd: int, layouts) -> str:
 
 def route_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``pick_route`` for the tensors themselves: the route of the forward
-    and of the backward on (q, k, v)."""
+    on (q, k, v)."""
     return pick_route(q.dtype, q.shape[3], [(t.data_ptr(), t.shape,
                                              t.stride()) for t in (q, k, v)])
+
+
+def bwd_route_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The route of the backward on (q, k, v): the forward's at
+    ``TENSOR_CORE_BWD_HEAD_DIMS`` (64-128), else the CUDA cores (bf16 at
+    256 too, whose forward runs on the tensor cores)."""
+    if q.shape[3] not in TENSOR_CORE_BWD_HEAD_DIMS:
+        return "cuda_cores"
+    return route_of(q, k, v)
 
 
 def _tma_strides(t: torch.Tensor) -> list[int]:
@@ -265,7 +275,7 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True,
     CUDA tensors, each query's log-sum-exp ``lse`` as ``flash_attention_
     fwd`` returns it; in the inputs' dtype, dk and dv summed over the query
     heads that share a kv head.  On CUDA tensors: the backward kernels of
-    ``route_of(q, k, v)``, P recomputed from q, k and lse, float32 sums
+    ``bwd_route_of(q, k, v)``, P recomputed from q, k and lse, float32 sums
     (the tensor cores round P and dS to bf16 before each product and write
     dq once; the CUDA cores add dq into a float32 buffer, then cast); on
     CPU tensors: autograd through the plain version, the gradient the
@@ -292,7 +302,7 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True,
             "flash_attention_bwd: needs the forward's log-sum-exp, (B, H, S) "
             f"float32 on {q.device} (flash_attention_fwd); got "
             f"{None if lse is None else (tuple(lse.shape), lse.dtype)}")
-    route = route_of(q, k, v)
+    route = bwd_route_of(q, k, v)
     tc = route == "tensor_cores"
     # the tensor cores read lse and delta by TMA as rows of a multiple of 4
     # floats (16 bytes)

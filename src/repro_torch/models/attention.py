@@ -2,11 +2,11 @@
 
 Prefill attention (``attend``) runs the flash-attention kernel K4 on the
 card, which reads q, k, v in the model's ``(B, S, H, hd)`` layout and maps
-query head h to kv head ``h // G`` itself: bf16 at head widths 64-128 on
+query head h to kv head ``h // G`` itself: bf16 at head widths 64-256 on
 the tensor cores (P rounded to bf16 before P.V, as the reference does),
-float32, the reduced configs' narrow heads and recurrentgemma's 256 on the
-CUDA cores; local-attention windows, and the encoder's and the
-cross-attention's non-causal S != T, in both.  On the CPU it runs the
+float32 and the reduced configs' narrow heads on the CUDA cores;
+local-attention windows, and the encoder's and the cross-attention's
+non-causal S != T, in both.  On the CPU it runs the
 plain version of the reference's chunked attention.  Single-token decode
 (``decode_attend``) is an einsum in the reference, not a kernel, and
 stays plain PyTorch on both devices.

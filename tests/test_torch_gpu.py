@@ -531,13 +531,13 @@ def test_gpu_flash_attention_window_matches_plain(dtype, hd):
     version: windows of 1, 7, 64, 127, 128, 129 and 2048 keys, causal and
     not, at ragged S and T, a causal q_offset, and recurrentgemma's S 4096
     at window 2048 (MQA, 10 query heads).  float32 within 2e-5, bf16
-    within 2e-2; bf16 at hd 64/128 on the tensor cores, hd 256 and float32
-    on the CUDA cores."""
+    within 2e-2; bf16 at hd 64/128/256 on the tensor cores, float32 on the
+    CUDA cores."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(6)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
-    route = ("tensor_cores" if dtype == torch.bfloat16 and hd <= 128
-             else "cuda_cores")
+    route = ("tensor_cores" if dtype == torch.bfloat16
+             and hd in fa_ops.TENSOR_CORE_HEAD_DIMS else "cuda_cores")
     cases = [(S, S, G, causal, 0, w) for S, G in ((200, 3), (129, 1))
              for w in (1, 7, 64, 127, 128, 129) for causal in (True, False)]
     cases += [(100, 612, 3, True, 512, 64), (333, 333, 8, True, 0, 2048)]
@@ -553,19 +553,75 @@ def test_gpu_flash_attention_window_matches_plain(dtype, hd):
 @pytest.mark.parametrize("hd", [96, 112, 256])
 def test_gpu_flash_attention_new_head_widths(dtype, hd):
     """K4 at phi-3-vision's 96, kimi-k2's 112 (bf16: the tensor cores, the
-    head padded to 128 by TMA's zero fill) and recurrentgemma's 256 (the
-    CUDA cores), causal and not, ragged S, GQA groups 1, 3 and 10."""
+    head padded to 128 by TMA's zero fill) and recurrentgemma's 256 (bf16:
+    the tensor cores, 64-key tiles), causal and not, ragged S, GQA groups
+    1, 3 and 10."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(hd)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
-    route = ("tensor_cores" if dtype == torch.bfloat16 and hd <= 128
-             else "cuda_cores")
+    route = ("tensor_cores" if dtype == torch.bfloat16
+             and hd in fa_ops.TENSOR_CORE_HEAD_DIMS else "cuda_cores")
     for S, G in ((1, 1), (24, 3), (129, 10), (1000, 3)):
         for causal in (True, False):
             q, k, v = _k4_case(g, dev, dtype, S, S, hd, G)
             _k4_check(q, k, v, causal, 0, 0, route, tol)
     q, k, v = _k4_case(g, dev, dtype, 100, 612, hd, 3)
     _k4_check(q, k, v, True, 512, 0, route, tol)
+
+
+@pytest.mark.parametrize("case", ["mqa", "windows", "ragged"])
+def test_gpu_flash_attention_hd256_tensor_cores(case):
+    """K4's bf16 forward at hd 256 on the tensor cores (64-key tiles)
+    against its plain version within 2e-2, at its new seams: MQA 10:1 at S
+    1, 63, 64, 65 and 129; windows of 1, 2, 63, 64, 65, 66, 127 and 129,
+    causal and not, and 2048 at recurrentgemma's S 4096 (MQA 10:1); ragged
+    S and T with T % 64 != 0 (333, 100 over 612 at q_offset 512, with and
+    without a window; 37 over 611 and 64 over 1500, non-causal).  A bf16
+    view at hd 256 whose pointer TMA cannot take raises ValueError and
+    launches nothing."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(256)
+    if case == "mqa":
+        for S in (1, 63, 64, 65, 129):
+            for causal in (True, False):
+                q, k, v = _k4_case(g, dev, torch.bfloat16, S, S, 256, 10, K=1)
+                _k4_check(q, k, v, causal, 0, 0, "tensor_cores", 2e-2)
+    elif case == "windows":
+        for w in (1, 2, 63, 64, 65, 66, 127, 129):
+            for causal in (True, False):
+                q, k, v = _k4_case(g, dev, torch.bfloat16, 300, 300, 256, 10,
+                                   K=1)
+                _k4_check(q, k, v, causal, 0, w, "tensor_cores", 2e-2)
+        q, k, v = _k4_case(g, dev, torch.bfloat16, 4096, 4096, 256, 10, K=1,
+                           B=1)
+        _k4_check(q, k, v, True, 0, 2048, "tensor_cores", 2e-2)
+    else:
+        for S, T, causal, off, w, G, K in (
+                (333, 333, True, 0, 0, 3, 2), (100, 612, True, 512, 0, 10, 1),
+                (100, 612, True, 512, 65, 10, 1), (37, 611, False, 0, 0, 1, 4),
+                (64, 1500, False, 0, 0, 1, 4)):
+            q, k, v = _k4_case(g, dev, torch.bfloat16, S, T, 256, G, K=K)
+            _k4_check(q, k, v, causal, off, w, "tensor_cores", 2e-2)
+        shifted = torch.zeros(8 * 4 * 256 + 1, dtype=torch.bfloat16,
+                              device=dev)[1:].view(1, 8, 4, 256)
+        before = fa_ops.launches
+        with pytest.raises(ValueError, match="tensor-core route"):
+            fa_ops.flash_attention(shifted, shifted[:, :, :1],
+                                   shifted[:, :, :1])
+        assert fa_ops.launches == before
+
+
+def test_gpu_flash_attention_hd256_builds_without_spill():
+    """The build log (``nvcc -Xptxas -v``) of the hd-256 tensor-core
+    forward, ``flash_fwd_tc_kernel<256>``, shows no spill store or load."""
+    _cuda()
+    from repro_torch.kernels import build
+    build.build_all(("flash_attention",))
+    found = {n: r for n, r in build.ptxas_report("flash_attention").items()
+             if "flash_fwd_tc_kernelILi256E" in n}
+    assert len(found) == 1, found
+    r, = found.values()
+    assert r["registers"] and r["spill_stores"] == r["spill_loads"] == 0, r
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -962,12 +1018,14 @@ def _k4_bwd_check(q, k, v, causal, q_offset, window, g, fault=False):
     plain version on the same card tensors, every entry within
     ``K4_BWD_TOL`` and the largest error within ``K4_BWD_LARGEST``; one
     forward and one backward launch counted, the backward on the route its
-    dtype and width call for (bf16 at 64-128: the tensor cores).  With
+    dtype and width call for (bf16 at 64-128: the tensor cores; at 256 the
+    CUDA cores, from the tensor-core forward's log-sum-exp).  With
     ``fault``, one tile of 64 keys of dk, then of dv, zeroed from the
     middle key on must fail the same check."""
     do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
     route = ("tensor_cores" if q.dtype == torch.bfloat16
-             and q.shape[3] in fa_ops.TENSOR_CORE_HEAD_DIMS else "cuda_cores")
+             and q.shape[3] in fa_ops.TENSOR_CORE_BWD_HEAD_DIMS
+             else "cuda_cores")
     f0, b0 = fa_ops.launches, fa_ops.bwd_launches
     r0 = fa_ops.bwd_route_launches[route]
     out, *got = _k4_grads(q, k, v, do, causal, q_offset, window,

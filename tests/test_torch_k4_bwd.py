@@ -171,17 +171,19 @@ def _packed(dtype, hd, form):
 @pytest.mark.parametrize("hd", fa_ops.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_route_choice(dtype, hd, form):
-    """The backward takes the forward's route, ``route_of(q, k, v)``: bf16
-    at 64-128 with 16-byte aligned pointers and strides on the tensor
-    cores, everything else on the CUDA cores; misaligned bf16 at a
-    tensor-core width raises instead of switching route."""
+    """The backward takes its own route, ``bwd_route_of(q, k, v)``: bf16
+    at its tensor-core widths (``TENSOR_CORE_BWD_HEAD_DIMS``, 64-128) with
+    16-byte aligned pointers and strides on the tensor cores, everything
+    else on the CUDA cores, bf16 at 256 too (whose forward runs on the
+    tensor cores); misaligned bf16 at a tensor-core width raises instead
+    of switching route."""
     q, k, v = _packed(dtype, hd, form)
-    tc = dtype == torch.bfloat16 and hd in fa_ops.TENSOR_CORE_HEAD_DIMS
+    tc = dtype == torch.bfloat16 and hd in fa_ops.TENSOR_CORE_BWD_HEAD_DIMS
     if tc and form != "aligned":
         with pytest.raises(ValueError, match="tensor-core route"):
-            fa_ops.route_of(q, k, v)
+            fa_ops.bwd_route_of(q, k, v)
     else:
-        assert fa_ops.route_of(q, k, v) == (
+        assert fa_ops.bwd_route_of(q, k, v) == (
             "tensor_cores" if tc else "cuda_cores")
 
 

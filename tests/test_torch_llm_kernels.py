@@ -130,10 +130,12 @@ def _layouts(hd, form):
 @pytest.mark.parametrize("hd", fa_ops.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_route_choice(dtype, hd, form):
-    """bf16 at head widths 64, 80, 128 takes the tensor-core route (TMA +
-    wgmma); float32, and bf16 at 8-32, the CUDA-core route whatever the
-    alignment.  A bf16 tensor at a tensor-core width whose base pointer or
-    strides are not 16-byte multiples raises instead of switching route."""
+    """bf16 at the forward's tensor-core widths
+    (``TENSOR_CORE_HEAD_DIMS``: 64, 80, 96, 112, 128 and 256) takes the
+    tensor-core route (TMA + wgmma); float32, and bf16 at 8-32, the
+    CUDA-core route whatever the alignment.  A bf16 tensor at a
+    tensor-core width whose base pointer or strides are not 16-byte
+    multiples raises instead of switching route."""
     layouts = _layouts(hd, form)
     tc = dtype == torch.bfloat16 and hd in fa_ops.TENSOR_CORE_HEAD_DIMS
     if tc and form in ("pointer", "stride"):

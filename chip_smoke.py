@@ -194,9 +194,9 @@ failure raises and the script exits non-zero:
                over 1500 frames, non-causal), recurrentgemma's window
                (hd 256, MQA, window 2048, S 4096) and a ragged hd-8
                shape: each on the route its dtype and width call for
-               (``kernel_route``: bf16 at hd 64-128 on the tensor cores;
-               bf16 at 256 on the CUDA cores, whose forward runs on the
-               tensor cores; each from the forward's saved log-sum-exp),
+               (``kernel_route``: bf16 at hd 64-256 on the tensor cores,
+               recurrentgemma's 256 too; float32 and bf16 at hd 8 on the
+               CUDA cores; each from the forward's saved log-sum-exp),
                every entry of dq,
                dk, dv within ``K4_BWD_TOL`` of its plain value
                (``k4_bwd_check``), and one key tile of dk or dv zeroed
@@ -225,10 +225,18 @@ failure raises and the script exits non-zero:
                step's.  ms per step, tokens/s, model TFLOP/s, the busy
                share, peak memory, device ms by operation and K4's device
                ms per step: the forward, and the backward's delta pass,
-               dK/dV and dQ kernels.
+               dK/dV and dQ kernels;
+               d. recurrentgemma-2b likewise (the same tokens, cut and
+               optimizer; the ``hybrid`` entry): its 8 local attention
+               layers (hd 256, MQA, window 2048, half the 4096 tokens)
+               run K4's hd-256 backward on the tensor cores, 8 a
+               microbatch, with its dK/dV kernel's head groups and their
+               ordered sum; the gate, 1 warm-up and 2 counted steps, the
+               first batch again; model TFLOP/s counts the attention
+               pairs inside the window only.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(K1-K5 and K4's backward), one ``{"server": ...}`` line, one
+(K1-K5 and K4's backward at llama's and recurrentgemma's layers), one ``{"server": ...}`` line, one
 ``{"train": ...}`` line, one ``{"llm": ...}`` line, one ``{"scale_out":
 ...}`` line, one ``{"lm_train": ...}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels DIR`` it
@@ -292,6 +300,9 @@ SCALE_ROOT = os.path.join(ROOT, "build", "smoke_scale_out")
 LM_TRAIN_ARCH, LM_TRAIN_SEQ, LM_TRAIN_MB, LM_TRAIN_N_MB = (
     "llama3.2-3b", 4096, 1, 2)
 LM_TRAIN_COUNTED = 3
+# phase 9 d: recurrentgemma-2b, the same tokens and cut; its 8 local
+# attention layers (window 2048) run K4's hd-256 backward
+LM_TRAIN_HYBRID, LM_TRAIN_HYBRID_COUNTED = "recurrentgemma-2b", 2
 # a llama-class peak learning rate with a 100-step warm-up: at the
 # launcher's 1e-3 over 10, the first AdamW steps (about +-lr on every
 # entry) of the random 3.6 B model raise its loss
@@ -2256,8 +2267,10 @@ def k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype):
     """K4's backward at one shape (``K4_BWD_SHAPES``) and dtype, on seeded
     inputs: dq, dk, dv against autograd through the plain version on the
     card (``k4_bwd_check``; a planted fault must fail it), on the route
-    its dtype and width call for (``kernel_route``; bf16 at hd 64-128: the
-    tensor cores; bf16 at 256 and float32: the CUDA cores), timed as in
+    its dtype and width call for (``kernel_route``; bf16 at the tree's
+    ``TENSOR_CORE_BWD_HEAD_DIMS``, 64-256 here, recurrentgemma's 256 too:
+    the tensor cores; float32 and bf16 at hd 8: the CUDA cores; a parent
+    tree's own widths for ``--lm-kernels``), timed as in
     phase 4 beside the plain version's backward and SDPA's (autograd
     through ``scaled_dot_product_attention`` on the same inputs; the
     boolean mask where there is a window), each a
@@ -2470,9 +2483,20 @@ def lm_train_gate(torch, cfg, model, batch, fa_ops):
     return gate
 
 
-def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
-    """Phase 9 (see the module docstring).  Returns (the ``lm_train``
-    report, K4's backward row for the kernel line)."""
+def visible_pairs(S, window):
+    """Causal (query, key) pairs of S tokens under ``window`` (0: none)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def full_width_step(torch, dev, fa_ops, arch, counted):
+    """Phase 9 c (llama3.2-3b) or d (recurrentgemma-2b): ``arch`` at full
+    width in bf16 (seeded weights), train_4k's 4096 tokens in 2
+    microbatches of 1 from a seeded TokenStore, AdamW with warmup_cosine
+    through the in-place update, remat: the gate (``lm_train_gate``), 1
+    warm-up step, ``counted`` steps with the counters zeroed, then the
+    first batch again, profiled.  Returns its report."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
@@ -2481,16 +2505,7 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
     from repro_torch.models import lm, steps
     from repro_torch.train.optim import adamw, warmup_cosine
 
-    t_phase = time.perf_counter()
-    # a. K4's backward against its plain version, timed
-    rows = [k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype)
-            for shape in K4_BWD_SHAPES for dtype in ("bfloat16", "float32")]
-    log(f"[lm_train] a. K4 backward rows: {rows}")
-    # b. reduced families, card against CPU
-    families = lm_family_steps(torch, dev, fa_ops)
-
-    # c. full-width llama3.2-3b
-    cfg = get_config(LM_TRAIN_ARCH)
+    cfg = get_config(arch)
     shutil.rmtree(LM_TRAIN_DATA, ignore_errors=True)
     store = TokenStore(LM_TRAIN_DATA, n_sequences=64, seq_len=LM_TRAIN_SEQ,
                        vocab=cfg.vocab, n_shards=4, create=True,
@@ -2507,14 +2522,13 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
     first = device_batch(next(it), cfg, dev)
     gate = lm_train_gate(torch, cfg, model, {k: v[0] for k, v in
                                              first.items()}, fa_ops)
-    log(f"[lm_train] c. gate {gate}")
+    log(f"[lm_train] {arch} gate {gate}")
     opt = adamw(warmup_cosine(*LM_TRAIN_LR))
     state = steps.init_train_state(model, opt)
     train = steps.make_train_step(cfg, opt)
     state, m0 = train(state, first)              # the warm-up step
     losses = [float(m0["loss"])]
-    batches = [device_batch(next(it), cfg, dev)
-               for _ in range(LM_TRAIN_COUNTED)]
+    batches = [device_batch(next(it), cfg, dev) for _ in range(counted)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     fa_ops.launches = fa_ops.bwd_launches = 0
@@ -2526,20 +2540,24 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / LM_TRAIN_COUNTED
+    step_s = (time.perf_counter() - t0) / counted
     launches = {"K4_forward": fa_ops.launches,
                 "K4_backward": fa_ops.bwd_launches,
                 "K4_backward_by_route": dict(fa_ops.bwd_route_launches)}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    # K4 forward twice per layer and microbatch (the remat forward
-    # recomputes it), backward once, on the tensor cores (bf16, hd 128)
-    n_bwd = cfg.n_layers * LM_TRAIN_N_MB * LM_TRAIN_COUNTED
+    # K4 forward twice per attention layer and microbatch (the remat
+    # forward recomputes it), backward once, on the tensor cores (bf16 at
+    # hd 128 and 256)
+    pattern = cfg.pattern or ("attn",)
+    n_attn = sum(pattern[i % len(pattern)] == "attn"
+                 for i in range(cfg.n_layers))
+    n_bwd = n_attn * LM_TRAIN_N_MB * counted
     want = {"K4_forward": 2 * n_bwd, "K4_backward": n_bwd,
             "K4_backward_by_route": {"tensor_cores": n_bwd,
                                      "cuda_cores": 0}}
     if launches != want:
-        raise AssertionError(f"lm_train: K4 launches {launches}, expected "
-                             f"{want}")
+        raise AssertionError(f"lm_train {arch}: K4 launches {launches}, "
+                             f"expected {want}")
     # the first step's batch again, profiled: its loss must be lower
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
@@ -2549,11 +2567,12 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
     again = float(m["loss"])
     if not (np.isfinite(losses + norms + [again]).all()
             and again < losses[0]):
-        raise AssertionError(f"lm_train: losses {losses}, the first batch "
-                             f"again {again}")
+        raise AssertionError(f"lm_train {arch}: losses {losses}, the first "
+                             f"batch again {again}")
     dev_ms = device_ms(prof)
     # K4's device ms in the profiled step by kernel: the forward, and the
-    # backward's delta pass, dK/dV and dQ kernels (the CUDA-core backward
+    # backward's delta pass, dK/dV kernels (hd 64-128; hd 256 and its
+    # head groups' ordered sum) and dQ kernel (the CUDA-core backward
     # kernel, which the bf16 step must not run, beside them)
     k4_ms = {kind: sum(e.self_device_time_total for e in prof.key_averages()
                        if name in e.key) / 1e3
@@ -2561,6 +2580,8 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
                  ("forward", "::tc::flash_fwd_tc_kernel"),
                  ("backward_delta", "::pre::flash_bwd_delta_kernel"),
                  ("backward_dkdv", "::tcb::flash_bwd_dkdv_kernel"),
+                 ("backward_dkdv256", "::tcb::flash_bwd_dkdv256_kernel"),
+                 ("backward_group_sum", "::tcb::flash_bwd_sum_kernel"),
                  ("backward_dq", "::tcb::flash_bwd_dq_kernel"),
                  ("backward_cuda_cores", "::bwd::flash_bwd_kernel"))}
     k4_ms["backward"] = sum(v for kind, v in k4_ms.items()
@@ -2575,15 +2596,17 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
                "other": dev_ms - k4_total - gemm}
     tokens = LM_TRAIN_SEQ * LM_TRAIN_MB * LM_TRAIN_N_MB
     n_mat = n_params - cfg.vocab * cfg.d_model       # the embedding lookup
-    pairs = LM_TRAIN_SEQ * (LM_TRAIN_SEQ + 1) // 2
-    attn = cfg.n_layers * cfg.n_heads * cfg.head_dim * pairs * \
+    # attention pairs over the window only (recurrentgemma's 2048)
+    attn = n_attn * cfg.n_heads * cfg.head_dim * \
+        visible_pairs(LM_TRAIN_SEQ, cfg.window if cfg.pattern else 0) * \
         LM_TRAIN_MB * LM_TRAIN_N_MB
     model_flops = 6 * n_mat * tokens + 12 * attn       # fwd 4, bwd 8 / pair
     remat_flops = 2 * n_mat * tokens + 4 * attn
     report = {
-        "config": LM_TRAIN_ARCH, "params": n_params, "dtype": cfg.dtype,
+        "config": arch, "params": n_params, "dtype": cfg.dtype,
         "seq_len": LM_TRAIN_SEQ, "microbatches": LM_TRAIN_N_MB,
-        "microbatch": LM_TRAIN_MB,
+        "microbatch": LM_TRAIN_MB, "attention_layers": n_attn,
+        "window": cfg.window if cfg.pattern else 0,
         "reduced": "global batch 256 -> 2 (train_4k: 256 x 4096 tokens)",
         "optimizer": f"adamw, warmup_cosine{LM_TRAIN_LR}, in place",
         "init_s": init_s, "gate": gate,
@@ -2594,37 +2617,64 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
         "remat_flop_per_step": remat_flops,
         "peak_mem_gb": peak, "losses": losses, "grad_norms": norms,
         "first_batch_loss_again": again,
-        "launches": launches,
+        "counted_steps": counted, "launches": launches,
         "profiled_step_ms": prof_s * 1e3,
         "device_ms_profiled_step": dev_ms,
         "device_busy_share": dev_ms / (step_s * 1e3),
         "device_busy_share_profiled_step": dev_ms / (prof_s * 1e3),
         "k4_device_ms_per_step": k4_ms,
         "device_ms_by_kind": by_kind,
-        "device_ms_by_op": top_ops(prof, n=12),
-        "families": families}
-    log(f"[lm_train] c. {report}")
+        "device_ms_by_op": top_ops(prof, n=12)}
+    log(f"[lm_train] {arch}: {report}")
     it.io.close()
     del model, state, train, opt, first, batches, m, m0, it, prof
     shutil.rmtree(LM_TRAIN_DATA, ignore_errors=True)
     torch.cuda.empty_cache()
-    llama = rows[0]
-    k4_bwd = dict(
-        name="flash_attention_bwd", route="cuda",
-        source="src/repro_torch/csrc/flash_attention_bwd.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:64 "
-                 "(the backward of K4; the Pallas kernel has none)",
-        launches=launches["K4_backward"],
-        launches_per_step=launches["K4_backward"] // LM_TRAIN_COUNTED,
-        **{key: llama[key] for key in (
-            "kernel_route", "design_hd_per_pair",
-            "max_abs_err", "largest_entry_err", "tol_ratio", "tolerance",
-            "atol_reading",
-            "ref_abs_mean", "ref_abs_max", "fault_ratio",
-            "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "timed_by", "event_ms", "per_launch_ms",
-            "visible_pairs", "input", "dtype", "shape")},
-        rows=rows[1:])
+    return report
+
+
+def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
+    """Phase 9 (see the module docstring).  Returns (the ``lm_train``
+    report, K4's backward entries for the kernel line: llama3.2-3b's
+    layer, then recurrentgemma-2b's)."""
+    t_phase = time.perf_counter()
+    # a. K4's backward against its plain version, timed
+    rows = [k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype)
+            for shape in K4_BWD_SHAPES for dtype in ("bfloat16", "float32")]
+    log(f"[lm_train] a. K4 backward rows: {rows}")
+    # b. reduced families, card against CPU
+    families = lm_family_steps(torch, dev, fa_ops)
+    # c. full-width llama3.2-3b; d. full-width recurrentgemma-2b
+    report = full_width_step(torch, dev, fa_ops, LM_TRAIN_ARCH,
+                             LM_TRAIN_COUNTED)
+    report["families"] = families
+    hybrid = full_width_step(torch, dev, fa_ops, LM_TRAIN_HYBRID,
+                             LM_TRAIN_HYBRID_COUNTED)
+    report["hybrid"] = hybrid
+
+    def entry(row, run):
+        return dict(
+            name="flash_attention_bwd", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:"
+                     "64 (the backward of K4; the Pallas kernel has none)",
+            launches=run["launches"]["K4_backward"],
+            launches_per_step=(run["launches"]["K4_backward"]
+                               // run["counted_steps"]),
+            launches_on=run["config"],
+            **{key: row[key] for key in (
+                "kernel_route", "design_hd_per_pair",
+                "max_abs_err", "largest_entry_err", "tol_ratio", "tolerance",
+                "atol_reading",
+                "ref_abs_mean", "ref_abs_max", "fault_ratio",
+                "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "timed_by", "event_ms", "per_launch_ms",
+                "visible_pairs", "input", "dtype", "shape")})
+    # rows: (llama, whisper, recurrentgemma, ragged) x (bf16, float32)
+    llama, rg = rows[0], rows[4]
+    k4_bwd = [dict(entry(llama, report),
+                   rows=[r for r in rows[1:] if r is not rg]),
+              entry(rg, hybrid)]
     report["phase_s"] = time.perf_counter() - t_phase
     return report, k4_bwd
 
@@ -2967,7 +3017,7 @@ def main(argv):
 
     # --- 9. the LM train step: K4's backward, families, full width --------
     lm_train, k4_bwd = phase_lm_train(torch, dev, F, fa_ops, fa_ref)
-    kernels.append(k4_bwd)
+    kernels += k4_bwd
     log(f"[lm_train] phase in {lm_train['phase_s']:.1f} s")
 
     print(smi)

@@ -19,12 +19,12 @@
 // (kernels/flash_attention/ops.py::bwd_route_of):
 //
 // * tensor cores (helios_flash_attention_bwd_tc): bf16 at head widths 64,
-//   80, 96, 112 and 128, FlashAttention-3's backward for Hopper (Shah et
-//   al., 2024) split into two kernels so that nothing is added by atomics
-//   and the result is the same from run to run; see namespace tcb below.
+//   80, 96, 112, 128 and 256, FlashAttention-3's backward for Hopper (Shah
+//   et al., 2024) split into two kernels so that nothing is added by
+//   atomics and the result is the same from run to run; see namespace tcb
+//   below.
 // * CUDA cores (helios_flash_attention_bwd): float32 at every width, bf16
-//   at 8-32 and 256 (whose forward runs on the tensor cores and saves the
-//   log-sum-exp read here).  FlashAttention-2's backward (Dao, 2023) in
+//   at 8-32.  FlashAttention-2's backward (Dao, 2023) in
 //   float32: one CTA per (batch, kv head, key tile of 64 keys; 32 at hd
 //   256) keeps the tile's K and V in shared memory and its dK and dV in
 //   registers, loops over the G query heads of its kv head and over the
@@ -43,7 +43,10 @@
 // visible pair (S, dP, dV, dK, dQ), about 258 GFLOP, 0.26 ms at the bf16
 // tensor cores' 989 TFLOP/s.  The split tensor-core design recomputes S and
 // dP in its dQ kernel and adds P's low half into dV: 16 hd per pair (10 in
-// the dK/dV kernel, 6 in the dQ kernel), 412 GFLOP, 0.417 ms.
+// the dK/dV kernel, 6 in the dQ kernel), 412 GFLOP, 0.417 ms.  At
+// recurrentgemma-2b's (S = T = 4096, 10 query heads on one kv head, hd
+// 256, causal, window 2048: 6.29 M visible pairs a head) 10 hd a pair is
+// 161 GFLOP, 0.163 ms; the design's 16, 0.261 ms.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -354,7 +357,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace bwd
 
 // ---------------------------------------------------------------------------
-// Tensor-core route: bf16, head widths 64, 80, 96, 112 and 128, on sm_90a.
+// Tensor-core route: bf16, head widths 64, 80, 96, 112, 128 and 256, on
+// sm_90a.
 //
 // Two kernels, each laid out as the forward's CTA (flash_attention.cu,
 // namespace tc): three warpgroups, the first a producer whose one thread
@@ -390,6 +394,29 @@ __global__ void __launch_bounds__(kThreads, 1)
 // 80-112, rest on the TMA's zero fill; tiles that cross a diagonal, a
 // window edge, or the end of the queries or keys are masked per element
 // (P = dS = 0), and padding columns and rows are not stored.
+//
+// At hd 256 (recurrentgemma-2b: 10 query heads on one kv head, window
+// 2048) that layout does not fit: 128 resident keys of K and V (128 KB)
+// beside two stages of Q and dO tiles (128 KB) pass the 227 KB a CTA may
+// hold, and dK and dV of 64 keys at 256 columns are 256 float32 registers
+// a thread.  So:
+// * flash_bwd_dkdv256_kernel holds 64 keys (64 KB), streams 64-query
+//   tiles of Q and dO (2 stages, 128 KB), and its two consumers split the
+//   head's columns: each holds dK and dV for all 64 keys at 128 columns
+//   (128 registers).  S^T and dP^T contract over all 256 columns; consumer
+//   0 computes S^T and P^T, consumer 1 dP^T, and they swap the two tiles
+//   through 32 KB of shared memory (231,464 bytes in all), so no product is
+//   computed twice: computing both in each consumer would add 16 of every
+//   40 m64n64k16 steps a consumer issues per tile.
+// * With one kv head and B = 1, one CTA per 64 keys is 64 CTAs for 132
+//   SMs, so the G query heads of a kv head split into head groups
+//   (groups, chosen by the caller: kernels/flash_attention/ops.py::
+//   bwd_head_groups), a CTA per (key block, group); each group writes its
+//   float32 sums to a scratch buffer and flash_bwd_sum_kernel adds them in
+//   group order and casts: the same bits every run, still no atomics.
+// * The dQ kernel keeps 128 resident queries (Q and dO: 128 KB) and streams
+//   32-key tiles of K and V (2 stages, 64 KB); S and dP are 16 registers a
+//   thread, dQ 128.
 // ---------------------------------------------------------------------------
 namespace tcb {
 
@@ -402,24 +429,28 @@ constexpr int kAtom = 8 * kRow;    // one 8-row swizzle atom
 constexpr int kProducerRegs = 24;  // setmaxnreg: 24 * 128 + 240 * 256
 constexpr int kConsumerRegs = 240; //   <= 65,536 registers of the SM
 
-// Shared-memory layout of both kernels for a head width padded to HDP (64
-// or 128), in bytes from a 1024-aligned base: two resident blocks of kBlk
-// rows (K, V for dK/dV; Q, dO for dQ), kStages tiles of each streamed
-// tensor (Q and dO; K and V), then kStages (lse, delta) boxes (dK/dV only)
-// and the mbarriers (resident full; per stage full and empty).
-template <int HDP>
+// Shared-memory layout of the kernels for a head width padded to HDP (64,
+// 128 or 256), BLK resident rows and streamed tiles of TILE rows, in bytes
+// from a 1024-aligned base: two resident blocks (K, V for dK/dV; Q, dO for
+// dQ), kStages tiles of each streamed tensor (Q and dO; K and V), then
+// kStages (lse, delta) boxes (dK/dV only), XCHG bytes for the consumers'
+// exchange (dK/dV at 256 only) and the mbarriers (resident full; per stage
+// full and empty).
+template <int HDP, int BLK = kBlk, int TILE = kTile, int XCHG = 0>
 struct Layout {
   static constexpr int kCols = HDP / 64;                 // 64-column blocks
-  static constexpr int kResBytes = kCols * kBlk * kRow;  // one resident block
-  static constexpr int kTileBytes = kCols * kTile * kRow;
-  static constexpr int kStatBytes = 2 * kTile * 4;       // lse, delta boxes
+  static constexpr int kResBytes = kCols * BLK * kRow;   // one resident block
+  static constexpr int kTileBytes = kCols * TILE * kRow;
+  static constexpr int kStatBytes = 2 * TILE * 4;        // lse, delta boxes
   static constexpr int kRes0 = 0;
   static constexpr int kRes1 = kResBytes;
   static constexpr int kStr0 = 2 * kResBytes;
   static constexpr int kStr1 = kStr0 + kStages * kTileBytes;
   static constexpr int kStats = kStr1 + kStages * kTileBytes;
-  static constexpr int kBar = kStats + kStages * kStatBytes;
+  static constexpr int kXchg = kStats + kStages * kStatBytes;
+  static constexpr int kBar = kXchg + XCHG;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "over the 227 KB a CTA may hold");
 };
 
 // grid (B * Kh, ceil(Tk / kBlk)): the CTA of key block n0 = blockIdx.y *
@@ -636,9 +667,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // grid (B * H, ceil(S / kBlk)): the CTA of query block q0 (the latest, the
 // heaviest under a causal mask, start first); block kThreads; dynamic smem
-// Layout<HDP>::kBytes.  The maps view q, dO (boxes of kBlk rows) and k, v
-// (kTile rows) as (hd, rows, heads, batch); lse, delta (B, H, ld) float32.
-template <int HDP>
+// Layout<HDP, kBlk, TILE>::kBytes.  The maps view q, dO (boxes of kBlk
+// rows) and k, v (TILE rows: kTile, and 32 at hd 256) as (hd, rows, heads,
+// batch); lse, delta (B, H, ld) float32.
+template <int HDP, int TILE>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
@@ -649,7 +681,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                         __nv_bfloat16* __restrict__ dq, int S, int Tk, int H,
                         int G, int hd, int ld, float scale, float scale_log2,
                         int causal, int q_offset, int window) {
-  using L = Layout<HDP>;
+  using L = Layout<HDP, kBlk, TILE>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + L::kRes0, sdO = base + L::kRes1;
@@ -662,8 +694,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlk;
   // key tiles [j0, j_end) hold the keys any query of the block can see
   const int kv_end = causal ? min(Tk, q_offset + min(q0 + kBlk, S)) : Tk;
-  const int j_end = kv_end > 0 ? (kv_end + kTile - 1) / kTile : 0;
-  const int j0 = first_key(q_offset + q0, window, kTile) / kTile;
+  const int j_end = kv_end > 0 ? (kv_end + TILE - 1) / TILE : 0;
+  const int j0 = first_key(q_offset + q0, window, TILE) / TILE;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -690,10 +722,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(empty(s), (((j - j0) / kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * L::kTileBytes);
         for (int c = 0; c < L::kCols; ++c) {
-          tma_load(sK + s * L::kTileBytes + c * kTile * kRow, &kmap, full(s),
-                   64 * c, j * kTile, kvh, b);
-          tma_load(sV + s * L::kTileBytes + c * kTile * kRow, &vmap, full(s),
-                   64 * c, j * kTile, kvh, b);
+          tma_load(sK + s * L::kTileBytes + c * TILE * kRow, &kmap, full(s),
+                   64 * c, j * TILE, kvh, b);
+          tma_load(sV + s * L::kTileBytes + c * TILE * kRow, &vmap, full(s),
+                   64 * c, j * TILE, kvh, b);
         }
       }
     }
@@ -725,37 +757,37 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_wait(q_full, 0);
 
     for (int j = j0; j < j_end; ++j) {
-      const int s = (j - j0) % kStages, k0 = j * kTile;
+      const int s = (j - j0) % kStages, k0 = j * TILE;
       const uint32_t tK = sK + s * L::kTileBytes, tV = sV + s * L::kTileBytes;
       mbar_wait(full(s), ((j - j0) / kStages) & 1);
       // the tile holds a key that some row of the warpgroup sees
       if (k0 < my_end &&
-          (window <= 0 || k0 + kTile > q_offset + r0 - window + 1)) {
-        float sc[kTile / 2], dp[kTile / 2];
+          (window <= 0 || k0 + TILE > q_offset + r0 - window + 1)) {
+        float sc[TILE / 2], dp[TILE / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HDP / 16; ++kk) {
           const uint32_t c = kk / 4, x = (kk % 4) * 32;
-          wgmma_ss_n64(sc, smem_desc(sQw + c * kBlk * kRow + x, 16, kAtom),
-                       smem_desc(tK + c * kTile * kRow + x, 16, kAtom), kk);
+          wgmma_ss<TILE>(sc, smem_desc(sQw + c * kBlk * kRow + x, 16, kAtom),
+                         smem_desc(tK + c * TILE * kRow + x, 16, kAtom), kk);
         }
 #pragma unroll
         for (int kk = 0; kk < HDP / 16; ++kk) {
           const uint32_t c = kk / 4, x = (kk % 4) * 32;
-          wgmma_ss_n64(dp, smem_desc(sdOw + c * kBlk * kRow + x, 16, kAtom),
-                       smem_desc(tV + c * kTile * kRow + x, 16, kAtom), kk);
+          wgmma_ss<TILE>(dp, smem_desc(sdOw + c * kBlk * kRow + x, 16, kAtom),
+                         smem_desc(tV + c * TILE * kRow + x, 16, kAtom), kk);
         }
         wgmma_commit();
         wgmma_wait_all();
         pin(sc);
         pin(dp);
 
-        const bool edge = k0 + kTile > Tk ||
-                          (causal && k0 + kTile - 1 > q_offset + r0) ||
+        const bool edge = k0 + TILE > Tk ||
+                          (causal && k0 + TILE - 1 > q_offset + r0) ||
                           (window > 0 && q_offset + r0 + 63 - k0 >= window);
-        uint32_t ds[kTile / 16][4];
+        uint32_t ds[TILE / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk) {
+        for (int kk = 0; kk < TILE / 16; ++kk) {
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
             float dsv[2];
@@ -776,13 +808,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           }
         }
 
-        // dQ += dS K in kTile / 16 steps of 16 keys; K read MN-major
+        // dQ += dS K in TILE / 16 steps of 16 keys; K read MN-major
         pin(acc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kTile / 16; ++kk)
+        for (int kk = 0; kk < TILE / 16; ++kk)
           wgmma_pv<HDP>(acc, ds[kk],
-                        smem_desc(tK + kk * 16 * kRow, kTile * kRow, kAtom));
+                        smem_desc(tK + kk * 16 * kRow, TILE * kRow, kAtom));
         wgmma_commit();
         wgmma_wait_all();
         pin(acc);
@@ -809,6 +841,288 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- head width 256 -------------------------------------------------------
+// The dK/dV kernel's CTA holds kKeys256 keys; both consumers take all of
+// them and split the head's columns (consumer c: columns [128 c, 128 c +
+// 128) of dK and dV, 128 float32 registers in all).  Consumer 0 computes
+// S^T = K Q^T and P^T, consumer 1 dP^T = V dO^T, each over all 256
+// columns; they swap the two 64 x 64 float32 tiles through shared memory,
+// each thread's values at the other warpgroup's thread of the same index
+// (the accumulators' layouts match), under two named barriers per tile.
+// The dQ kernel is flash_bwd_dq_kernel<256, kKTile256>.
+constexpr int kKeys256 = 64;    // keys per dK/dV CTA
+constexpr int kQTile256 = 64;   // queries per streamed dK/dV tile
+constexpr int kKTile256 = 32;   // keys per streamed dQ tile
+constexpr int kXchg256 = 2 * kKeys256 * kQTile256 * 4;   // 2 float tiles
+using Layout256 = Layout<256, kKeys256, kQTile256, kXchg256>;
+
+__device__ __forceinline__ void consumers_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// grid (B * Kh * groups, ceil(Tk / kKeys256)): the CTA of key block n0 =
+// blockIdx.y * kKeys256 and head group grp, which takes query heads [G grp
+// / groups, G (grp + 1) / groups) of its kv head; block kThreads; dynamic
+// smem Layout256::kBytes.  The maps view q, dO and k, v in boxes of 64
+// rows; lse and delta as in flash_bwd_dkdv_kernel.  groups == 1: dk (scaled)
+// and dv are written as bf16; else each group writes its float32 sums to
+// part (2, groups, B, Tk, Kh, 256), dK unscaled, for flash_bwd_sum_kernel.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv256_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap domap,
+                             const __grid_constant__ CUtensorMap lsemap,
+                             const __grid_constant__ CUtensorMap deltamap,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv,
+                             float* __restrict__ part, int groups, int B,
+                             int S, int Tk, int H, int Kh, float scale,
+                             float scale_log2, int causal, int q_offset,
+                             int window) {
+  using L = Layout256;
+  constexpr int kQT = kQTile256;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base + L::kRes0, sV = base + L::kRes1;
+  const uint32_t sQ = base + L::kStr0, sdO = base + L::kStr1;
+  const uint32_t sStats = base + L::kStats;
+  unsigned char* const gen = smem_raw + (base - raw);
+  const float* stats = reinterpret_cast<const float*>(gen + L::kStats);
+  float* const xchg = reinterpret_cast<float*>(gen + L::kXchg);
+  const uint32_t kv_full = base + L::kBar;
+  const auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  const auto empty = [&](int s) { return kv_full + 8 * (1 + kStages + s); };
+
+  const int G = H / Kh;
+  const int grp = blockIdx.x % groups, bk = blockIdx.x / groups;
+  const int b = bk / Kh, kvh = bk % Kh;
+  const int g_lo = G * grp / groups, g_hi = G * (grp + 1) / groups;
+  const int n0 = blockIdx.y * kKeys256;
+  // query tiles [t0, t0 + n_tiles) hold every query that sees a key of the
+  // block: from the causal diagonal to the window's far edge
+  const int s_lo = causal ? max(0, n0 - q_offset) : 0;
+  const int s_hi =
+      window > 0 ? min(S, n0 + kKeys256 - 1 + window - q_offset) : S;
+  const int t0 = s_lo / kQT;
+  const int n_tiles = max(0, (max(s_hi, 0) + kQT - 1) / kQT - t0);
+  const int n_iter = (g_hi - g_lo) * n_tiles;   // (head, tile), head-major
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2 * 128);   // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {             // ---- producer warpgroup -----------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kResBytes);
+      for (int c = 0; c < L::kCols; ++c) {
+        tma_load(sK + c * kKeys256 * kRow, &kmap, kv_full, 64 * c, n0, kvh, b);
+        tma_load(sV + c * kKeys256 * kRow, &vmap, kv_full, 64 * c, n0, kvh, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % kStages;
+        const int h = kvh * G + g_lo + it / n_tiles;
+        const int q0 = (t0 + it % n_tiles) * kQT;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::kTileBytes + L::kStatBytes);
+        for (int c = 0; c < L::kCols; ++c) {
+          tma_load(sQ + s * L::kTileBytes + c * kQT * kRow, &qmap, full(s),
+                   64 * c, q0, h, b);
+          tma_load(sdO + s * L::kTileBytes + c * kQT * kRow, &domap,
+                   full(s), 64 * c, q0, h, b);
+        }
+        tma_load_2d(sStats + s * L::kStatBytes, &lsemap, full(s), q0,
+                    b * H + h);
+        tma_load_2d(sStats + s * L::kStatBytes + kQT * 4, &deltamap,
+                    full(s), q0, b * H + h);
+      }
+    }
+  } else {                   // ---- consumer warpgroups ----------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int w = wg - 1;    // 0: S^T and P^T; 1: dP^T
+    const int tid = threadIdx.x % 128, lane = threadIdx.x % 32;
+    const int key = n0 + 16 * (tid / 32) + lane / 4;
+    const int col0 = 2 * (lane % 4);
+    // the warpgroup's product: K Q^T or V dO^T; the swap: each consumer
+    // writes its tile to its own half and reads the other's
+    const uint32_t sA = w == 0 ? sK : sV;
+    float* const mine = xchg + w * (kKeys256 * kQT);
+    const float* const theirs = xchg + (1 - w) * (kKeys256 * kQT);
+
+    float dk_acc[64], dv_acc[64];   // columns [128 w, 128 w + 128)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kStages;
+      const int q0 = (t0 + it % n_tiles) * kQT;
+      const int p0 = q_offset + q0;                    // first position
+      const int p1 = q_offset + min(q0 + kQT, S) - 1;  // last position
+      const uint32_t tQ = sQ + s * L::kTileBytes;
+      const uint32_t tdO = sdO + s * L::kTileBytes;
+      const uint32_t tB = w == 0 ? tQ : tdO;
+      const float* sl = stats + s * (L::kStatBytes / 4);  // lse, then delta
+      mbar_wait(full(s), (it / kStages) & 1);
+      // some key of the block is seen by some query of the tile (the same
+      // answer in both consumers, so both pass the named barriers below)
+      if ((!causal || n0 <= p1) &&
+          (window <= 0 || p0 - (n0 + kKeys256 - 1) < window)) {
+        float x[kQT / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 256 / 16; ++kk) {
+          const uint32_t c = kk / 4, o = (kk % 4) * 32;
+          wgmma_ss_n64(x, smem_desc(sA + c * kKeys256 * kRow + o, 16, kAtom),
+                       smem_desc(tB + c * kQT * kRow + o, 16, kAtom), kk);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(x);
+
+        const bool edge = n0 + kKeys256 > Tk || q0 + kQT > S ||
+                          (causal && n0 + kKeys256 - 1 > p0) ||
+                          (window > 0 && p0 + kQT - 1 - n0 >= window);
+        if (w == 0) {        // P^T, 0 where the pair is masked
+#pragma unroll
+          for (int i = 0; i < kQT / 2; ++i) {
+            const int qc = 8 * (i / 4) + col0 + i % 2;   // query in the tile
+            x[i] = fast_exp2(fmaf(x[i], scale_log2, -sl[qc]));
+            if (edge) {
+              const int t = key + 8 * ((i / 2) % 2), pos = p0 + qc;
+              if (q0 + qc >= S || t >= Tk || (causal && t > pos) ||
+                  (window > 0 && pos - t >= window))
+                x[i] = 0.f;
+            }
+          }
+        }
+        consumers_sync(1);   // the other has read the previous tile's swap
+#pragma unroll
+        for (int i = 0; i < kQT / 2; ++i) mine[i * 128 + tid] = x[i];
+        consumers_sync(2);   // both tiles written
+        // P^T as a bf16 pair (hi, lo) and dS^T = P^T (dP^T - delta)
+        // rounded; dS^T is 0 where P^T is (masked, or past S, where delta
+        // is not a value)
+        uint32_t p[kQT / 16][4], plo[kQT / 16][4], ds[kQT / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kQT / 16; ++kk) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float pv[2], dsv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 8 * kk + 2 * q + e;
+              const int qc = 8 * (i / 4) + col0 + e;
+              const float other = theirs[i * 128 + tid];
+              pv[e] = w == 0 ? x[i] : other;
+              const float dpt = w == 0 ? other : x[i];
+              dsv[e] = pv[e] == 0.f ? 0.f : pv[e] * (dpt - sl[kQT + qc]);
+            }
+            pack_bf16_split(pv[0], pv[1], p[kk][q], plo[kk][q]);
+            ds[kk][q] = pack_bf16(dsv[0], dsv[1]);
+          }
+        }
+
+        // dV[:, half] += P^T dO[:, half] and dK[:, half] += dS^T Q[:, half]
+        // in kQT / 16 steps of 16 queries: the half's two 64-column blocks
+        // of dO and Q read MN-major, a tile's 64-column block apart
+        const uint32_t hO = tdO + 2 * w * kQT * kRow;
+        const uint32_t hQ = tQ + 2 * w * kQT * kRow;
+        pin(dv_acc);
+        pin(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kQT / 16; ++kk)
+          wgmma_rs_n128(dv_acc, p[kk],
+                        smem_desc(hO + kk * 16 * kRow, kQT * kRow, kAtom));
+#pragma unroll
+        for (int kk = 0; kk < kQT / 16; ++kk)
+          wgmma_rs_n128(dv_acc, plo[kk],
+                        smem_desc(hO + kk * 16 * kRow, kQT * kRow, kAtom));
+#pragma unroll
+        for (int kk = 0; kk < kQT / 16; ++kk)
+          wgmma_rs_n128(dk_acc, ds[kk],
+                        smem_desc(hQ + kk * 16 * kRow, kQT * kRow, kAtom));
+        wgmma_commit();
+        wgmma_wait_all();
+        pin(dv_acc);
+        pin(dk_acc);
+        pin(p);
+        pin(plo);
+        pin(ds);
+      }
+      mbar_arrive(empty(s));
+    }
+
+    // epilogue: the warpgroup's 128 columns of its keys, as bf16 pairs to
+    // the (B, Tk, Kh, 256) outputs, or as float32 pairs to the group's part
+    const int64_t n = static_cast<int64_t>(B) * Tk * Kh * 256;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = key + 8 * r;
+      if (t >= Tk) continue;
+      const int64_t off =
+          ((static_cast<int64_t>(b) * Tk + t) * Kh + kvh) * 256 + 128 * w;
+#pragma unroll
+      for (int c = 0; c < 128 / 8; ++c) {
+        const int64_t at = off + 8 * c + col0;
+        const float k0 = dk_acc[4 * c + 2 * r], k1 = dk_acc[4 * c + 2 * r + 1];
+        const float v0 = dv_acc[4 * c + 2 * r], v1 = dv_acc[4 * c + 2 * r + 1];
+        if (groups == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+              __floats2bfloat162_rn(k0 * scale, k1 * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          *reinterpret_cast<float2*>(part + grp * n + at) = make_float2(k0, k1);
+          *reinterpret_cast<float2*>(part + (groups + grp) * n + at) =
+              make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+// dk = bf16(scale * sum of the groups' dK parts), dv = bf16(sum of their dV
+// parts), the groups added in order 0, 1, ...: the same bits every run.
+// Four entries a thread; n (entries of dk) a multiple of 4.
+__global__ void __launch_bounds__(256)
+    flash_bwd_sum_kernel(const float* __restrict__ part,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int64_t n,
+                         int groups, float scale) {
+  const int64_t i =
+      4 * (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const float* src = part + which * groups * n + i;
+    float4 a = *reinterpret_cast<const float4*>(src);
+    for (int g = 1; g < groups; ++g) {
+      const float4 y = *reinterpret_cast<const float4*>(src + g * n);
+      a.x += y.x;
+      a.y += y.y;
+      a.z += y.z;
+      a.w += y.w;
+    }
+    const float m = which == 0 ? scale : 1.f;
+    __nv_bfloat16* out = (which == 0 ? dk : dv) + i;
+    reinterpret_cast<__nv_bfloat162*>(out)[0] =
+        __floats2bfloat162_rn(a.x * m, a.y * m);
+    reinterpret_cast<__nv_bfloat162*>(out)[1] =
+        __floats2bfloat162_rn(a.z * m, a.w * m);
+  }
+}
+
 // The tensor maps of one backward call: q and dO in boxes of kTile rows
 // (dK/dV) and of kBlk rows (dQ), k and v the other way round.
 struct Maps {
@@ -826,7 +1140,7 @@ int launch(const Maps& m, const float* lse, const float* delta, void* dq,
       flash_bwd_dkdv_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HDP>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<HDP, kTile>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -838,10 +1152,51 @@ int launch(const Maps& m, const float* lse, const float* delta, void* dq,
           S, Tk, H, K, hd, scale, scale_log2, causal, q_offset, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<HDP>
+  flash_bwd_dq_kernel<HDP, kTile>
       <<<dim3(B * H, (S + kBlk - 1) / kBlk), kThreads, bytes, stream>>>(
           m.q_blk, m.k_tile, m.v_tile, m.do_blk, lse, delta,
           static_cast<__nv_bfloat16*>(dq), S, Tk, H, H / K, hd, ld, scale,
+          scale_log2, causal, q_offset, window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hd 256: the dK/dV kernel (partial sums per head group when groups > 1,
+// then the ordered sum), then the dQ kernel with 32-key tiles.
+int launch256(const Maps& m, const float* lse, const float* delta, void* dq,
+              void* dk, void* dv, float* part, int groups, int B, int S,
+              int Tk, int H, int K, int ld, int causal, int q_offset,
+              int window, float scale, cudaStream_t stream) {
+  constexpr int kv_bytes = Layout256::kBytes;
+  constexpr int q_bytes = Layout<256, kBlk, kKTile256>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkdv256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kv_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<256, kKTile256>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               q_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = scale * kLog2e;
+  auto* dkb = static_cast<__nv_bfloat16*>(dk);
+  auto* dvb = static_cast<__nv_bfloat16*>(dv);
+  flash_bwd_dkdv256_kernel<<<dim3(B * K * groups,
+                                  (Tk + kKeys256 - 1) / kKeys256),
+                             kThreads, kv_bytes, stream>>>(
+      m.q_tile, m.k_blk, m.v_blk, m.do_tile, m.lse, m.delta, dkb, dvb, part,
+      groups, B, S, Tk, H, K, scale, scale_log2, causal, q_offset, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (groups > 1) {
+    const int64_t n = static_cast<int64_t>(B) * Tk * K * 256;
+    flash_bwd_sum_kernel<<<static_cast<unsigned>((n / 4 + 255) / 256), 256,
+                           0, stream>>>(part, dkb, dvb, n, groups, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  flash_bwd_dq_kernel<256, kKTile256>
+      <<<dim3(B * H, (S + kBlk - 1) / kBlk), kThreads, q_bytes, stream>>>(
+          m.q_blk, m.k_tile, m.v_tile, m.do_blk, lse, delta,
+          static_cast<__nv_bfloat16*>(dq), S, Tk, H, H / K, 256, ld, scale,
           scale_log2, causal, q_offset, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -872,6 +1227,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// float32 at every width; bf16 only at 8-32 (bf16 heads of 64-256 take the
+// tensor-core route, so no CUDA-core instance is built for them)
 template <typename T>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 const void* o, const void* dout, const float* lse,
@@ -880,8 +1237,11 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 int q_offset, int window, float scale, cudaStream_t s) {
 #define HELIOS_FAB_CASE(D)                                                   \
   case D:                                                                    \
-    return launch<T, D>(q, k, v, o, dout, lse, delta, dq_acc, dk, dv, B, S,  \
-                        Tk, H, K, st, causal, q_offset, window, scale, s);
+    if constexpr (sizeof(T) == 4 || D <= 32)                                 \
+      return launch<T, D>(q, k, v, o, dout, lse, delta, dq_acc, dk, dv, B,   \
+                          S, Tk, H, K, st, causal, q_offset, window, scale,  \
+                          s);                                                \
+    break;
   switch (hd) {
     HELIOS_FAB_CASE(8)
     HELIOS_FAB_CASE(16)
@@ -910,8 +1270,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 // caller, gets dq.  dk and dv (B, T, K, hd) contiguous, the inputs' dtype,
 // every entry written (the caller zeroes them itself when B, S or T is 0:
 // nothing is launched then).  hd is 8, 16, 32, 64, 80, 96, 112, 128 or
-// 256; H % K == 0; window > 0: a query at position p sees only keys t > p -
-// window.  Two launches (delta, then the gradients); returns the first
+// 256 for float32 and 8, 16 or 32 for bfloat16; H % K == 0; window > 0: a
+// query at position p sees only keys t > p - window.  Two launches (delta, then the gradients); returns the first
 // cudaGetLastError() that is not cudaSuccess (cudaErrorInvalidValue for an
 // unsupported hd).
 extern "C" int helios_flash_attention_bwd(
@@ -936,50 +1296,64 @@ extern "C" int helios_flash_attention_bwd(
                             H, K, st, causal, q_offset, window, scale, s);
 }
 
-// The tensor-core route: bf16 at hd 64, 80, 96, 112 or 128; q, k, v with
-// the given element strides (hd contiguous; base pointers and strides
+// The tensor-core route: bf16 at hd 64, 80, 96, 112, 128 or 256; q, k, v
+// with the given element strides (hd contiguous; base pointers and strides
 // 16-byte multiples, as TMA reads them); o, dout as above; lse and delta
 // (scratch) (B, H, ld) float32, ld >= S a multiple of 4, 16-byte aligned,
 // only the first S of each row read as values; dq (B, S, H, hd), dk and
-// dv (B, T, K, hd) contiguous bf16, every entry written.  Three launches
-// (delta, dK/dV, dQ), no atomics.  Returns as the CUDA-core route, or minus
-// the CUresult when a tensor map cannot be built (-1000 when the driver
-// has no cuTensorMapEncodeTiled).
+// dv (B, T, K, hd) contiguous bf16, every entry written.  At hd 256 the
+// dK/dV kernel splits each kv head's H / K query heads into ``groups``
+// (1 <= groups <= H / K) and, when groups > 1, writes float32 partial sums
+// to ``part`` (scratch, 2 * groups * B * T * K * 256 floats) that a
+// fixed-order pass adds; below 256 groups is 1 and part unused.  Three
+// launches (delta, dK/dV, dQ; four at 256 with groups > 1), no atomics.
+// Returns as the CUDA-core route, or minus the CUresult when a tensor map
+// cannot be built (-1000 when the driver has no cuTensorMapEncodeTiled).
 extern "C" int helios_flash_attention_bwd_tc(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* delta, void* dq, void* dk,
-    void* dv, int B, int S, int T, int H, int K, int hd, int ld,
-    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
-    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int causal,
-    int q_offset, int window, float scale, void* stream) {
+    void* dv, void* part, int B, int S, int T, int H, int K, int hd, int ld,
+    int groups, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+    int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    int causal, int q_offset, int window, float scale, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || T <= 0) return 0;
   if (K <= 0 || H % K || ld < S || ld % 4 ||
-      (hd != 64 && hd != 80 && hd != 96 && hd != 112 && hd != 128))
+      (hd != 64 && hd != 80 && hd != 96 && hd != 112 && hd != 128 &&
+       hd != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 256 ? groups < 1 || groups > H / K || (groups > 1 && !part)
+                : groups != 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (!encode_tiled()) return -1000;
   // dout is contiguous (B, S, H, hd)
   const int64_t d_sb = static_cast<int64_t>(S) * H * hd, d_ss =
       static_cast<int64_t>(H) * hd, d_sh = hd;
   const int64_t rows = static_cast<int64_t>(B) * H;
-  constexpr int kTile = tcb::kTile, kBlk = tcb::kBlk;
+  // box rows: streamed query tiles and resident key blocks (dK/dV),
+  // resident query blocks and streamed key tiles (dQ)
+  const bool wide = hd == 256;
+  const int q_tile = wide ? tcb::kQTile256 : tcb::kTile;
+  const int k_blk = wide ? tcb::kKeys256 : tcb::kBlk;
+  const int q_blk = tcb::kBlk;
+  const int k_tile = wide ? tcb::kKTile256 : tcb::kTile;
   tcb::Maps m;
-  CUresult r = make_map(&m.q_tile, q, B, S, H, hd, q_sb, q_ss, q_sh, kTile);
+  CUresult r = make_map(&m.q_tile, q, B, S, H, hd, q_sb, q_ss, q_sh, q_tile);
   if (r == CUDA_SUCCESS)
-    r = make_map(&m.q_blk, q, B, S, H, hd, q_sb, q_ss, q_sh, kBlk);
+    r = make_map(&m.q_blk, q, B, S, H, hd, q_sb, q_ss, q_sh, q_blk);
   if (r == CUDA_SUCCESS)
-    r = make_map(&m.do_tile, dout, B, S, H, hd, d_sb, d_ss, d_sh, kTile);
+    r = make_map(&m.do_tile, dout, B, S, H, hd, d_sb, d_ss, d_sh, q_tile);
   if (r == CUDA_SUCCESS)
-    r = make_map(&m.do_blk, dout, B, S, H, hd, d_sb, d_ss, d_sh, kBlk);
+    r = make_map(&m.do_blk, dout, B, S, H, hd, d_sb, d_ss, d_sh, q_blk);
   if (r == CUDA_SUCCESS)
-    r = make_map(&m.k_blk, k, B, T, K, hd, k_sb, k_ss, k_sh, kBlk);
+    r = make_map(&m.k_blk, k, B, T, K, hd, k_sb, k_ss, k_sh, k_blk);
   if (r == CUDA_SUCCESS)
-    r = make_map(&m.k_tile, k, B, T, K, hd, k_sb, k_ss, k_sh, kTile);
+    r = make_map(&m.k_tile, k, B, T, K, hd, k_sb, k_ss, k_sh, k_tile);
   if (r == CUDA_SUCCESS)
-    r = make_map(&m.v_blk, v, B, T, K, hd, v_sb, v_ss, v_sh, kBlk);
+    r = make_map(&m.v_blk, v, B, T, K, hd, v_sb, v_ss, v_sh, k_blk);
   if (r == CUDA_SUCCESS)
-    r = make_map(&m.v_tile, v, B, T, K, hd, v_sb, v_ss, v_sh, kTile);
-  if (r == CUDA_SUCCESS) r = make_rows_map(&m.lse, lse, rows, ld, kTile);
-  if (r == CUDA_SUCCESS) r = make_rows_map(&m.delta, delta, rows, ld, kTile);
+    r = make_map(&m.v_tile, v, B, T, K, hd, v_sb, v_ss, v_sh, k_tile);
+  if (r == CUDA_SUCCESS) r = make_rows_map(&m.lse, lse, rows, ld, q_tile);
+  if (r == CUDA_SUCCESS) r = make_rows_map(&m.delta, delta, rows, ld, q_tile);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = pre::launch<__nv_bfloat16>(o, dout,
@@ -988,6 +1362,10 @@ extern "C" int helios_flash_attention_bwd_tc(
   if (rc) return rc;
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  if (wide)
+    return tcb::launch256(m, l, dl, dq, dk, dv, static_cast<float*>(part),
+                          groups, B, S, T, H, K, ld, causal, q_offset, window,
+                          scale, s);
   if (hd == 64)
     return tcb::launch<64>(m, l, dl, dq, dk, dv, B, S, T, H, K, hd, ld,
                            causal, q_offset, window, scale, s);

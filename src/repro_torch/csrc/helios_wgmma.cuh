@@ -119,6 +119,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 32, f32) = or += A (64 x 16, smem, K-major) * B (32 x 16, smem,
+// K-major)^T; scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 64, f32) += A (64 x 16, bf16 registers) * B (16 x 64, smem,
 // MN-major: the transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -235,11 +253,14 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[HDP / 2],
     wgmma_rs_n256(d, a, b);
 }
 
-// d (64 x N) = or += A (smem, K-major) * B (smem, K-major)^T at N 64 or 128
+// d (64 x N) = or += A (smem, K-major) * B (smem, K-major)^T at N 32, 64
+// or 128
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  if constexpr (N == 64)
+  if constexpr (N == 32)
+    wgmma_ss_n32(d, a, b, scale_d);
+  else if constexpr (N == 64)
     wgmma_ss_n64(d, a, b, scale_d);
   else
     wgmma_ss_n128(d, a, b, scale_d);

@@ -29,11 +29,13 @@ writes each query's log-sum-exp (``flash_attention_fwd``), and a backward
 that is a kernel too, ``csrc/flash_attention_bwd.cu``
 (``flash_attention_bwd``: a pre-pass for rowsum(dO * O), then the
 gradients on the backward's own route, ``bwd_route_of``: on the tensor
-cores, bf16 at widths 64-128 only, a dK/dV kernel and a dQ kernel with no
-atomics; on the CUDA cores, bf16 at 256 too (from the log-sum-exp the
-tensor-core forward wrote), one float32 kernel that adds dQ by atomics),
-counted in ``bwd_launches`` and by route in ``bwd_route_launches``.  On
-the CPU autograd runs through the plain version.
+cores, bf16 at the forward's tensor-core widths 64-256, a dK/dV kernel and
+a dQ kernel with no atomics (at 256 the dK/dV kernel may split the query
+heads into groups, ``bwd_head_groups``, whose float32 sums a fixed-order
+pass adds); on the CUDA cores, float32 and bf16 at 8-32, one float32
+kernel that adds dQ by atomics), counted in ``bwd_launches`` and by route
+in ``bwd_route_launches``.  On the CPU autograd runs through the plain
+version.
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ bwd_launches = 0   # backward calls (the pre-pass and its gradient kernels)
 bwd_route_launches = dict.fromkeys(ROUTES, 0)   # the same, per route
 HEAD_DIMS = (8, 16, 32, 64, 80, 96, 112, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (64, 80, 96, 112, 128, 256)
-TENSOR_CORE_BWD_HEAD_DIMS = (64, 80, 96, 112, 128)   # the backward's
+TENSOR_CORE_BWD_HEAD_DIMS = (64, 80, 96, 112, 128, 256)   # the backward's
+BWD_KEYS_256 = 64   # keys per dK/dV CTA of the tensor-core backward at 256
 TMA_ALIGN = 16    # bytes: TMA reads base pointers and strides of this unit
 
 # q, k, v, o, lse; is_bf16, B, S, T, H, K, hd; 9 strides; causal, q_offset,
@@ -65,8 +68,9 @@ _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 9
 _ARGS_TC = _ARGS[:5] + _ARGS[6:]    # no dtype flag: bf16 only
 # q, k, v, o, do, lse, delta, dq, dk, dv, then as the forward's from is_bf16
 _ARGS_BWD = [ctypes.c_void_p] * 10 + _ARGS[5:]
-# the tensor cores': no dtype flag, and lse's and delta's row stride after hd
-_ARGS_BWD_TC = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + _ARGS_TC[11:]
+# the tensor cores': the head groups' scratch after dv, no dtype flag, and
+# lse's and delta's row stride and the head groups after hd
+_ARGS_BWD_TC = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + _ARGS_TC[11:]
 
 
 def _lib() -> ctypes.CDLL:
@@ -120,11 +124,28 @@ def route_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 def bwd_route_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The route of the backward on (q, k, v): the forward's at
-    ``TENSOR_CORE_BWD_HEAD_DIMS`` (64-128), else the CUDA cores (bf16 at
-    256 too, whose forward runs on the tensor cores)."""
+    ``TENSOR_CORE_BWD_HEAD_DIMS`` (64-256, the same widths), else the CUDA
+    cores.  A misaligned bf16 tensor at those widths raises ValueError, as
+    the forward does."""
     if q.shape[3] not in TENSOR_CORE_BWD_HEAD_DIMS:
         return "cuda_cores"
     return route_of(q, k, v)
+
+
+def bwd_head_groups(B: int, T: int, K: int, G: int, hd: int,
+                    n_sm: int) -> int:
+    """Head groups of the tensor-core dK/dV kernel: 1 below hd 256.  At
+    256 a CTA holds ``BWD_KEYS_256`` keys of one (batch, kv head), so
+    ``ctas = B K ceil(T / 64)``; where that leaves SMs idle, each kv head's
+    G query heads split into as many groups as one wave of ``n_sm`` CTAs
+    takes, ``min(G, n_sm // ctas)``, at least 1, each group a CTA per key
+    block writing float32 partial sums that a fixed-order pass adds
+    (recurrentgemma-2b's layer, B 1, one kv head, T 4096, G 10, on 132
+    SMs: 64 CTAs, 2 groups)."""
+    if hd != 256:
+        return 1
+    ctas = B * K * -(-T // BWD_KEYS_256)
+    return max(1, min(G, n_sm // max(ctas, 1)))
 
 
 def _tma_strides(t: torch.Tensor) -> list[int]:
@@ -277,7 +298,9 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True,
     heads that share a kv head.  On CUDA tensors: the backward kernels of
     ``bwd_route_of(q, k, v)``, P recomputed from q, k and lse, float32 sums
     (the tensor cores round P and dS to bf16 before each product and write
-    dq once; the CUDA cores add dq into a float32 buffer, then cast); on
+    dq once, and dk and dv once or, split into ``bwd_head_groups`` at hd
+    256, as float32 sums that one pass adds in order; the CUDA cores add
+    dq into a float32 buffer, then cast); on
     CPU tensors: autograd through the plain version, the gradient the
     kernels are held to (``o`` and ``lse`` unused)."""
     global bwd_launches
@@ -328,8 +351,15 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True,
         tail = (int(causal), int(q_offset), int(window), 1.0 / math.sqrt(hd),
                 torch.cuda.current_stream(dev).cuda_stream)
         if tc:
+            groups = bwd_head_groups(
+                B, T, K, H // K, hd,
+                torch.cuda.get_device_properties(dev).multi_processor_count)
+            # each group's float32 dK and dV sums, added by a last pass
+            part = (torch.empty((2, groups, B, T, K, hd), dtype=torch.float32,
+                                device=dev) if groups > 1 else None)
             rc = lib.helios_flash_attention_bwd_tc(
-                *ptrs, B, S, T, H, K, hd, ld,
+                *ptrs, 0 if part is None else part.data_ptr(), B, S, T, H, K,
+                hd, ld, groups,
                 *[s for t in (q, k, v) for s in _tma_strides(t)], *tail)
             if rc < 0:
                 raise RuntimeError(

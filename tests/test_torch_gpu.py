@@ -422,7 +422,7 @@ def test_gpu_server_matches_cpu(store):
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_ref, lse_ref)
+    attention_ref, lse_ref, visible)
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv_scan.ref import wkv_ref  # noqa: E402
 from repro_torch.models import lm, steps  # noqa: E402
@@ -1018,8 +1018,8 @@ def _k4_bwd_check(q, k, v, causal, q_offset, window, g, fault=False):
     plain version on the same card tensors, every entry within
     ``K4_BWD_TOL`` and the largest error within ``K4_BWD_LARGEST``; one
     forward and one backward launch counted, the backward on the route its
-    dtype and width call for (bf16 at 64-128: the tensor cores; at 256 the
-    CUDA cores, from the tensor-core forward's log-sum-exp).  With
+    dtype and width call for (bf16 at 64-256: the tensor cores; float32
+    and bf16 at 8-32: the CUDA cores).  With
     ``fault``, one tile of 64 keys of dk, then of dv, zeroed from the
     middle key on must fail the same check."""
     do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
@@ -1092,6 +1092,61 @@ def test_gpu_flash_attention_bwd_forms():
         _k4_bwd_check(q, k, v, causal, q_offset, window, g)
 
     check()
+
+
+@pytest.mark.parametrize("form", [
+    "mqa", "window_seams", "offset", "ragged", "packed", "groups"])
+def test_gpu_flash_attention_bwd_hd256_forms(form):
+    """K4's bf16 backward at hd 256 on the tensor cores (64-key dK/dV CTAs
+    in head groups, 32-key dQ tiles) against the plain version's autograd
+    within ``K4_BWD_TOL``, with one 64-key tile of dk, then of dv, zeroed
+    failing that (where queries see those keys and dk is not 0 exactly:
+    not at S 1 or window 1): MQA 10:1 at S 1, 64, 65 and 200, causal or
+    not; windows
+    1, 2, 34, 63, 64, 65 and 66 at S 300; S 100 over T 612 at q_offset 512
+    with and without a window; ragged S and T (37 over 611 non-causal, 150
+    over 170 GQA 3:1 at an offset, window 65); q/k/v as views of one
+    packed projection; and S 1024 at window 512, where the head-group rule
+    splits the 10 heads into 8 groups."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(256 + len(form))
+    bf = torch.bfloat16
+
+    def case(B, S, T, H, K, causal, off, window):
+        q = torch.randn(B, S, H, 256, generator=g, device=dev).to(bf)
+        k, v = (torch.randn(B, T, K, 256, generator=g, device=dev).to(bf)
+                for _ in range(2))
+        # the planted fault zeroes keys T // 2 ... of dk and dv: a fault only
+        # where some query sees them, and not where each query sees one key
+        # (S 1, window 1: P = 1, dS = 0, the exact dk is 0)
+        lo = (T // 2) // 64 * 64
+        seen = bool(visible(S, T, causal, off, window)[:, lo:lo + 64].any())
+        _k4_bwd_check(q, k, v, causal, off, window, g,
+                      fault=seen and S > 1 and window != 1)
+    if form == "mqa":
+        for S in (1, 64, 65, 200):
+            for causal in (True, False):
+                case(1, S, S, 10, 1, causal, 0, 0)
+    elif form == "window_seams":
+        for w in (1, 2, 34, 63, 64, 65, 66):
+            case(1, 300, 300, 10, 1, True, 0, w)
+        case(2, 300, 300, 10, 1, False, 0, 66)
+    elif form == "offset":
+        for w in (0, 64, 129):
+            case(1, 100, 612, 10, 1, True, 512, w)
+    elif form == "ragged":
+        case(1, 37, 611, 5, 1, False, 0, 0)
+        case(2, 150, 170, 6, 2, True, 20, 65)
+    elif form == "packed":
+        qkv = torch.randn(2, 333, 12 + 2 * 4, 256, generator=g,
+                          device=dev).to(bf)
+        _k4_bwd_check(qkv[:, :, :12], qkv[:, :, 12:16], qkv[:, :, 16:],
+                      True, 0, 100, g, fault=True)
+    else:
+        assert fa_ops.bwd_head_groups(
+            1, 1024, 1, 10, 256,
+            torch.cuda.get_device_properties(dev).multi_processor_count) > 1
+        case(1, 1024, 1024, 10, 1, True, 0, 512)
 
 
 # (label, B, S, T, H, K, hd, causal, window): chip_smoke.py's phase
@@ -1195,16 +1250,24 @@ def test_gpu_flash_attention_bwd_repeats_bit_for_bit():
     """The tensor-core backward adds nothing by atomics: the same backward
     twice on the same inputs gives identical dq, dk and dv, at llama's
     GQA shape (causal) and at a ragged windowed one with q/k/v views of
-    one packed projection."""
+    one packed projection; and at hd 256, recurrentgemma-2b's layer (MQA
+    10:1, S 4096, window 2048: two head groups added in order) and a
+    ragged packed one."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(5)
     qkv = torch.randn(1, 333, 12 + 2 * 4, 128, generator=g,
                       device=dev).to(torch.bfloat16)
+    wide = torch.randn(1, 333, 12 + 2 * 4, 256, generator=g,
+                       device=dev).to(torch.bfloat16)
     cases = [
         tuple(torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
               for shape in ((2, 1024, 24, 128), (2, 1024, 8, 128),
                             (2, 1024, 8, 128))) + (True, 0, 0),
-        (qkv[:, :, :12], qkv[:, :, 12:16], qkv[:, :, 16:], True, 0, 100)]
+        (qkv[:, :, :12], qkv[:, :, 12:16], qkv[:, :, 16:], True, 0, 100),
+        tuple(torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+              for shape in ((1, 4096, 10, 256), (1, 4096, 1, 256),
+                            (1, 4096, 1, 256))) + (True, 0, 2048),
+        (wide[:, :, :12], wide[:, :, 12:16], wide[:, :, 16:], True, 0, 100)]
     for q, k, v, causal, q_offset, window in cases:
         do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
         o, lse = fa_ops.flash_attention_fwd(q, k, v, causal, q_offset,

@@ -1,8 +1,11 @@
 """K4's backward on the CPU, before any card run: the log-sum-exp the
 forward saves (``ref.lse_ref``) against numpy's logsumexp of the reference's
 scores; a tile-by-tile model of the tensor-core backward kernels
-(``k4_bwd_model.bwd_model``) against ``jax.grad`` of the reference model's
-``attend``; the route each backward takes; and the CPU wrappers.
+(``k4_bwd_model.bwd_model``, with each head width's schedule: at hd 256
+64-key dK/dV CTAs in head groups, half the columns a consumer, 32-key dQ
+tiles) against ``jax.grad`` of the reference model's ``attend``, and its
+hd-256 schedule's off-by-one mutants failing it; the head-group rule;
+the route each backward takes; and the CPU wrappers.
 
 Tolerances.  ``lse_ref``: 1e-5 absolute (float32 scores and sums, in log2
 units).  The model without rounding: 1e-5 of each gradient's largest
@@ -24,8 +27,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from k4_bwd_model import (K4_BWD_LARGEST, bwd_model, largest_err,  # noqa: E402
-                          tol_ratio)
+from k4_bwd_model import (K4_BWD_LARGEST, MUTANTS, bwd_model,  # noqa: E402
+                          largest_err, tol_ratio)
 from repro.models.attention import attend as jax_attend  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import lse_ref  # noqa: E402
@@ -102,7 +105,12 @@ def test_lse_ref_marks_a_query_that_sees_no_key():
 
 
 # (S, T, H, K, hd, causal, q_offset, window): hd 64 and 128, S and T up to
-# 192, G 1-3, causal or not, a window, an offset, ragged tiles
+# 192, G 1-3, causal or not, a window, an offset, ragged tiles; then hd 256
+# (64-key dK/dV CTAs split into head groups, 32-key dQ tiles): MQA 10:1 at
+# small S (10 head groups of one head), windows 2, 34 and 66, which put a
+# dQ consumer's first visible key in the last slot of a 32-key tile, a
+# query offset of 512, ragged S and T (non-causal 37 over 611, five groups;
+# GQA 3:1 over two kv heads at an offset with window 65)
 MODEL_CASES = [(192, 192, 6, 2, 128, True, 0, 0),
                (150, 150, 3, 3, 64, True, 0, 0),
                (64, 192, 4, 2, 64, False, 0, 0),
@@ -110,7 +118,14 @@ MODEL_CASES = [(192, 192, 6, 2, 128, True, 0, 0),
                (100, 160, 2, 2, 64, True, 60, 0),
                (192, 192, 3, 1, 64, True, 0, 70),
                (97, 131, 6, 2, 128, False, 0, 64),
-               (40, 190, 3, 3, 64, True, 150, 33)]
+               (40, 190, 3, 3, 64, True, 150, 33),
+               (200, 200, 10, 1, 256, True, 0, 0),
+               (200, 200, 10, 1, 256, True, 0, 2),
+               (160, 160, 10, 1, 256, False, 0, 34),
+               (130, 130, 10, 1, 256, True, 0, 66),
+               (100, 612, 10, 1, 256, True, 512, 64),
+               (37, 611, 5, 1, 256, False, 0, 0),
+               (150, 170, 6, 2, 256, True, 20, 65)]
 
 
 @pytest.mark.parametrize("case", MODEL_CASES, ids=str)
@@ -154,6 +169,71 @@ def test_bwd_bf16_rounding_fits_the_card_tolerance(case):
     assert tol_ratio(once[2], want[2], "bfloat16", 2) > 1
 
 
+@pytest.mark.parametrize("groups", [1, 2, 3, 4, 10])
+def test_bwd_hd256_head_groups_sum_to_the_gradient(groups):
+    """At hd 256 the dK/dV kernel splits a kv head's 10 query heads into
+    head groups whose float32 sums a last pass adds in group order; with
+    1, 2, 3 (3 + 3 + 4 heads), 4 and 10 groups, where a CTA's query bands
+    run from one head into the next inside a group, the model gives
+    ``jax.grad`` of ``attend`` unrounded (1e-5 of each gradient's largest
+    entry) and stays within the card's bf16 limits with the roundings."""
+    S, H, hd, window = 150, 10, 256, 40
+    q, k, v, do = _inputs(groups, 1, S, S, H, 1, hd, bf16=False)
+    want = _jax_grads(q, k, v, do, True, 0, window)
+    got = bwd_model(*(torch.from_numpy(a) for a in (q, k, v, do)), True, 0,
+                    window, rounding=False, groups=groups)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max())
+    q, k, v, do = _inputs(groups + 1, 1, S, S, H, 1, hd)
+    want = [torch.from_numpy(np.array(w))
+            for w in _jax_grads(q, k, v, do, True, 0, window)]
+    got = bwd_model(*(torch.from_numpy(a) for a in (q, k, v, do)), True, 0,
+                    window, groups=groups)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert tol_ratio(g, w, "bfloat16", i) <= 1
+        assert largest_err(g, w) <= K4_BWD_LARGEST["bfloat16"]
+
+
+@pytest.mark.parametrize("mutant", MUTANTS)
+def test_bwd_hd256_schedule_mutants_fail_the_model(mutant):
+    """Each off-by-one fault planted in the hd-256 schedule (a dK/dV CTA's
+    first or last query tile skipped, a dQ CTA's first or last key tile
+    skipped, a head group left out of the ordered sum, a group's last head
+    dropped, the window's seam mask one key wide) moves some gradient of
+    the unrounded model by more than 1e-3 of its largest entry from
+    ``jax.grad`` of ``attend``, at recurrentgemma's form cut small (MQA
+    10:1, causal, window 66, S 200: 10 head groups), where the unplanted
+    model is exact within 1e-5: the exact-gradient cases would catch it."""
+    S, H, hd, window = 200, 10, 256, 66
+    q, k, v, do = _inputs(7, 1, S, S, H, 1, hd, bf16=False)
+    want = _jax_grads(q, k, v, do, True, 0, window)
+    tq = [torch.from_numpy(a) for a in (q, k, v, do)]
+
+    def worst(m):
+        got = bwd_model(*tq, True, 0, window, rounding=False, mutant=m)
+        return max(float(np.abs(g.numpy() - w).max() / np.abs(w).max())
+                   for g, w in zip(got, want))
+    assert worst(None) <= 1e-5
+    assert worst(mutant) > 1e-3, mutant
+
+
+def test_bwd_head_groups_rule():
+    """``bwd_head_groups``: 1 below hd 256; at 256 as many groups as one
+    wave of SMs takes beside the B K ceil(T / 64) dK/dV CTAs, at most G:
+    recurrentgemma-2b's layer (B 1, one kv head, T 4096, G 10) on the
+    H100's 132 SMs gets 2 (128 CTAs), eight kv heads at 4096 keys 1, a
+    short sequence all 10."""
+    groups = fa_ops.bwd_head_groups
+    assert groups(1, 4096, 1, 10, 256, 132) == 2
+    assert groups(1, 4096, 8, 3, 128, 132) == 1
+    assert groups(1, 4096, 8, 3, 256, 132) == 1
+    assert groups(2, 4096, 1, 10, 256, 132) == 1
+    assert groups(1, 200, 1, 10, 256, 132) == 10
+    assert groups(1, 1000, 1, 10, 256, 132) == 8
+    assert groups(3, 37, 2, 3, 256, 132) == 3
+
+
 def _packed(dtype, hd, form):
     """q, k, v as CPU views of one packed (2, 24, 6 + 2 * 2, hd + pad)
     projection; ``form`` breaks TMA's 16-byte alignment (a base pointer 2
@@ -172,12 +252,13 @@ def _packed(dtype, hd, form):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_route_choice(dtype, hd, form):
     """The backward takes its own route, ``bwd_route_of(q, k, v)``: bf16
-    at its tensor-core widths (``TENSOR_CORE_BWD_HEAD_DIMS``, 64-128) with
-    16-byte aligned pointers and strides on the tensor cores, everything
-    else on the CUDA cores, bf16 at 256 too (whose forward runs on the
-    tensor cores); misaligned bf16 at a tensor-core width raises instead
-    of switching route."""
+    at its tensor-core widths (``TENSOR_CORE_BWD_HEAD_DIMS``, 64-256, the
+    forward's) with 16-byte aligned pointers and strides on the tensor
+    cores, bf16 at 256 included; everything else (float32, bf16 at 8-32)
+    on the CUDA cores; misaligned bf16 at a tensor-core width, 256
+    included, raises instead of switching route."""
     q, k, v = _packed(dtype, hd, form)
+    assert fa_ops.TENSOR_CORE_BWD_HEAD_DIMS == fa_ops.TENSOR_CORE_HEAD_DIMS
     tc = dtype == torch.bfloat16 and hd in fa_ops.TENSOR_CORE_BWD_HEAD_DIMS
     if tc and form != "aligned":
         with pytest.raises(ValueError, match="tensor-core route"):

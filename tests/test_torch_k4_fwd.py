@@ -159,16 +159,16 @@ def _aligned_layouts():
 
 
 def test_hd256_bf16_forward_tensor_cores_backward_cuda_cores():
-    """bf16 at hd 256 takes the tensor cores forward and the CUDA cores
-    backward (whose tensor-core kernels take 64-128 only); float32 at hd
-    256 takes the CUDA cores both ways."""
+    """bf16 at hd 256 takes the tensor cores forward and, since the
+    backward's tensor-core kernels took width 256 too, backward; only
+    float32 at hd 256 takes the CUDA cores, both ways."""
     layouts = _aligned_layouts()
     assert fa_ops.pick_route(torch.bfloat16, HD, layouts) == "tensor_cores"
-    assert HD not in fa_ops.TENSOR_CORE_BWD_HEAD_DIMS
+    assert HD in fa_ops.TENSOR_CORE_BWD_HEAD_DIMS
     q = torch.zeros(2, 24, 6, HD, dtype=torch.bfloat16)
     k = torch.zeros(2, 24, 2, HD, dtype=torch.bfloat16)
     assert fa_ops.route_of(q, k, k) == "tensor_cores"
-    assert fa_ops.bwd_route_of(q, k, k) == "cuda_cores"
+    assert fa_ops.bwd_route_of(q, k, k) == "tensor_cores"
     assert fa_ops.route_of(q.float(), k.float(), k.float()) == "cuda_cores"
     assert fa_ops.bwd_route_of(q.float(), k.float(),
                                k.float()) == "cuda_cores"

@@ -3,7 +3,7 @@
 scale-out (a remote-tier cache, a dead peer, a serving fleet; K1-K3),
 out-of-core GNN training (K1, K2/K3 forward and backward), LM serving of
 every registered family, prefill then greedy decode (K4, K5), and the LM
-train step (K4 forward and backward) at full width.
+train step (K4 and K5, forward and backward) at full width.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
@@ -202,11 +202,24 @@ failure raises and the script exits non-zero:
                (``k4_bwd_check``), and one key tile of dk or dv zeroed
                must fail that; timed as in phase 4 beside the plain
                version's backward and SDPA's (the library yardstick);
+               then K5's backward at rwkv6-7b's training layer (1, 4096,
+               64, 64) in float32 on seeded inputs (logw -exp of
+               log-uniform over [1e-4, 20]), with neither an initial
+               state nor a final-state cotangent (as training runs it)
+               and with both: every entry of dr, dk, dv, dlogw, du and
+               the initial state's gradient against ``wkv_bwd_ref`` on
+               the card (``k5_bwd_check``, ``K5_BWD_TOL``), one chunk of
+               dlogw zeroed and one column group's dk partial dropped
+               must fail that, whether a second call repeats the bits;
+               timed beside the plain version (library: none), and K5's
+               forward saving checkpoints at the same shape beside the
+               same forward saving none;
                b. one make_train_step (AdamW, 2 microbatches) of the
-               dense, MoE, hybrid, vision and audio configs at .reduced()
-               width in float32 on the card and on the CPU: loss and
-               grad_norm within 1e-4, parameters after the step
-               (``lm_family_steps``);
+               dense, MoE, hybrid, vision, audio and rwkv configs at
+               .reduced() width in float32 on the card and on the CPU:
+               loss and grad_norm within 1e-4, parameters after the step,
+               the family's kernel (K5 for rwkv, K4 for the rest)
+               launched forward and backward (``lm_family_steps``);
                c. llama3.2-3b at full width in bf16 (seeded weights),
                train_4k's 4096 tokens in 2 microbatches of 1 (the one
                cut: the global batch, 256 -> 2), AdamW with
@@ -233,10 +246,22 @@ failure raises and the script exits non-zero:
                microbatch, with its dK/dV kernel's head groups and their
                ordered sum; the gate, 1 warm-up and 2 counted steps, the
                first batch again; model TFLOP/s counts the attention
-               pairs inside the window only.
+               pairs inside the window only;
+               e. rwkv6-7b likewise (the ``ssm`` entry; the same tokens
+               and cut) with Adafactor through the in-place update: the
+               gate holds K5's backward kernel against the same model
+               with ``wkv_bwd_ref`` as K5's backward on the card
+               (``LM_TRAIN_RWKV_GATE``: loss, grad norm, the time-mix r,
+               k, v projections', decay parameters' and u's gradient
+               norms; the kernel side twice), and with dlogw zeroed the
+               decay parameters' readings must fail it; 1 warm-up and 2
+               counted steps (K5's forward twice a layer and microbatch
+               under remat, 128 a step, its backward 64), the first batch
+               again; K5's device ms a step by kernel.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(K1-K5 and K4's backward at llama's and recurrentgemma's layers), one ``{"server": ...}`` line, one
+(K1-K5, K4's backward at llama's and recurrentgemma's layers and K5's at
+rwkv6-7b's), one ``{"server": ...}`` line, one
 ``{"train": ...}`` line, one ``{"llm": ...}`` line, one ``{"scale_out":
 ...}`` line, one ``{"lm_train": ...}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels DIR`` it
@@ -305,11 +330,17 @@ LM_TRAIN_COUNTED = 3
 LM_TRAIN_HYBRID, LM_TRAIN_HYBRID_COUNTED = "recurrentgemma-2b", 2
 # a llama-class peak learning rate with a 100-step warm-up: at the
 # launcher's 1e-3 over 10, the first AdamW steps (about +-lr on every
-# entry) of the random 3.6 B model raise its loss
+# entry) of the random 3.6 B model raise its loss; Adafactor at the
+# reference dry run's peak (1e-2, ``repro.launch.dryrun``) over the same
+# warm-up took rwkv6-7b's loss from 11.84 to 41.31 in one step
 LM_TRAIN_LR = (3e-4, 100, 1000)
 LM_TRAIN_DATA = os.path.join(ROOT, "build", "smoke_tokens")
 LM_TRAIN_FAMILIES = ("llama3.2-3b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
-                     "phi-3-vision-4.2b", "whisper-small")
+                     "phi-3-vision-4.2b", "whisper-small", "rwkv6-7b")
+# phase 9 e: rwkv6-7b, the same tokens, cut and schedule, with Adafactor
+# (AdamW's float32 moments do not fit beside its 7.57 B parameters); like
+# AdamW's, its first steps move every entry by about the learning rate
+LM_TRAIN_RWKV, LM_TRAIN_RWKV_COUNTED = "rwkv6-7b", 2
 # K4's forward on seeded bf16 inputs with ``--lm-kernels`` (the same inputs
 # for any tree): (label, B, S, T, H, K, hd, causal, window), the prefill
 # layer shapes of recurrentgemma-2b (MQA, window 2048) and llama3.2-3b
@@ -371,6 +402,37 @@ K4_FWD_TILE = 64
 # 0.64 and 1.
 LM_TRAIN_GATE = {"loss": 2e-4, "grad_norm": 2e-3, "attn.wq": 2e-3,
                  "attn.wk": 2e-3, "attn.wv": 2e-3}
+# phase 9 e's gate, K5's backward kernel against ``wkv_bwd_ref`` as the
+# backward (the same forward kernel on both sides), relative: the loss, the
+# gradient norm, and the norms of the time-mix r, k, v projections', the
+# decay parameters' (w0, wA, wB) and u's gradients over every layer.  The
+# random 32-layer model's backward amplifies its gradients about 1e5-fold
+# from the last layer to the first (K5's dr 6e-5 at the top, 3.7 at the
+# bottom), so a reading moves with float32 rounding far upstream: with the
+# plain gradients scaled by 1 + 1e-6 seeded noise, the gradient norm and
+# the r, k, v and u readings moved 2.1-4.0%, the decay parameters'
+# 1.6e-4-2.3e-3, and the kernel's read 1.3-1.5% and 3.4e-4-1.6e-3 (an
+# H100, 700 W, two seeds of the noise).  Hence limits above that noise on
+# the model's readings, and each of the gate's K5 backward calls held to
+# ``wkv_bwd_ref`` on its own inputs (``LM_TRAIN_RWKV_CALL_TOL``); the
+# forward is the same kernel on both sides, so the loss is exact.
+LM_TRAIN_RWKV_GATE = {"loss": 1e-6, "grad_norm": 0.1, "tm.w_r": 0.1,
+                      "tm.w_k": 0.1, "tm.w_v": 0.1, "tm.w0": 1e-2,
+                      "tm.wA": 1e-2, "tm.wB": 1e-2, "tm.u": 0.1}
+# with dlogw zeroed these readings must leave the gate
+LM_TRAIN_RWKV_FAULT = ("tm.w0", "tm.wA", "tm.wB")
+# every K5 backward call of the gate's kernel side against ``wkv_bwd_ref``
+# on the same inputs: the largest |got - want| over the largest |want| of
+# each gradient, as the GPU cases hold it (read at most 1.4e-5, dv, over
+# rwkv6-7b's 32 layers on an H100)
+LM_TRAIN_RWKV_CALL_TOL = 1e-4
+# phase 9 a: K5's backward at rwkv6-7b's training layer (B, T, H, N)
+K5_BWD_SHAPE = ("rwkv6-7b time-mix, train_4k", 1, 4096, 64, 64)
+# K5's backward against ``wkv_bwd_ref`` on the card, entry by entry
+# (``k5_bwd_check``): |got - want| <= rtol |want| + atol mean|want| for each
+# of dr, dk, dv, dlogw, du, dstate0, as (rtol, atol).  float32 on both
+# sides, the same recurrence in another summation order.
+K5_BWD_TOL = (1e-4, 1e-4)
 TRAIN_SMALL = dict(vertices=20_000, row_dim=128, batches=3,
                    mode="helios-nopipe", batch_size=256, fanouts=(10, 5),
                    hidden=64, train_embeddings=True, embedding_momentum=0.9,
@@ -452,15 +514,15 @@ def timed(fn, reps=20, warm=3):
             per_launch(both, alone, reps))
 
 
-def timing(kernel, plain, library=None) -> dict:
+def timing(kernel, plain, library=None, plain_reps=5) -> dict:
     """The kernel line's time fields: device time where the profiler has
-    it for the kernel, its plain version and the library call alike, else
-    the event time of all three (``timed_by`` says which: the profiler
-    drops a call's device time now and then, and one row never mixes the
-    two), the event time of the kernel beside it, and the kernel's device
-    time per launch."""
+    it for the kernel, its plain version (over ``plain_reps`` calls) and
+    the library call alike, else the event time of all three
+    (``timed_by`` says which: the profiler drops a call's device time now
+    and then, and one row never mixes the two), the event time of the
+    kernel beside it, and the kernel's device time per launch."""
     k_dev, k_ev, split = timed(kernel)
-    p_dev, p_ev, _ = timed(plain, reps=5)
+    p_dev, p_ev, _ = timed(plain, reps=plain_reps)
     l_dev, l_ev, _ = timed(library) if library is not None else (None,) * 3
     by_device = k_dev is not None and p_dev is not None and (
         library is None or l_dev is not None)
@@ -2346,15 +2408,184 @@ def k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype):
     return row
 
 
-def lm_family_steps(torch, dev, fa_ops):
+def k5_bwd_check(torch, got, want, dk_dropped):
+    """K5's backward ``got`` (dr, dk, dv, dlogw, du, dstate0) against the
+    plain version's ``want``, entry by entry: the largest |got - want| /
+    (rtol |want| + atol mean|want|) of each (``tol_ratio``, within 1), with
+    (rtol, atol) ``K5_BWD_TOL``; ``atol_reading``, each one's largest
+    (|got - want| - rtol |want|) / mean|want|; and ``fault_ratio``, the
+    per-entry ratio with one 16-token chunk of dlogw zeroed (from the
+    middle token on) and with ``dk_dropped``, dk from the kernels run with
+    the last column group's columns of v, dy, the state and its cotangent
+    zeroed (that group's partial left out of dk), each of which must exceed
+    1."""
+    rtol, atol = K5_BWD_TOL
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+    means = [float(b.abs().mean()) for b in want]
+
+    def ratio(i, a):
+        b = want[i]
+        return float(((a - b).abs() / (rtol * b.abs() + atol * means[i]
+                                       + 1e-30)).max())
+    T = want[0].shape[1]
+    lo = (T // 2) // 16 * 16
+    bad = got[3].clone()
+    bad[:, lo:lo + 16] = 0
+    return {"max_abs_err": max(float((a - b).abs().max())
+                               for a, b in zip(got, want)),
+            "tol_ratio": {n: ratio(i, a)
+                          for i, (n, a) in enumerate(zip(names, got))},
+            "tolerance": {"rtol": rtol, "atol_of_mean": atol},
+            "atol_reading": {
+                n: float(((a - b).abs() - rtol * b.abs()).max()) / max(m,
+                                                                      1e-30)
+                for n, a, b, m in zip(names, got, want, means)},
+            "ref_abs_mean": dict(zip(names, means)),
+            "ref_abs_max": {n: float(b.abs().max())
+                            for n, b in zip(names, want)},
+            "fault_ratio": {f"dlogw tokens {lo}:{lo + 16} zeroed":
+                            ratio(3, bad),
+                            "dk without the last column group's partial":
+                            ratio(1, dk_dropped)}}
+
+
+def k5_inputs(torch, with_state):
+    """Seeded float32 inputs at ``K5_BWD_SHAPE``: r, k, v, logw = -exp of
+    log-uniform over [1e-4, 20] (long memory and the clip both occur), u,
+    the initial state and the final state's cotangent (None, None unless
+    ``with_state``), dy."""
+    _, B, T, H, N = K5_BWD_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(T + N + with_state)
+    r, k, v, dy = (torch.randn(B, T, H, N, generator=g, device="cuda")
+                   for _ in range(4))
+    logw = -torch.exp(math.log(1e-4) + math.log(2e5) * torch.rand(
+        B, T, H, N, generator=g, device="cuda"))
+    u = 0.3 * torch.randn(H, N, generator=g, device="cuda")
+    s0, ds = ((torch.randn(B, H, N, N, generator=g, device="cuda")
+               for _ in range(2)) if with_state else (None, None))
+    return r, k, v, logw, u, s0, dy, ds
+
+
+def k5_bwd_row(torch, wkv_ops, wkv_ref, with_state):
+    """Phase 9 a: K5's backward at rwkv6-7b's training layer
+    (``K5_BWD_SHAPE``) on seeded inputs, with an initial state and a
+    final-state cotangent or with neither (as training runs it): every
+    entry of the six gradients against ``wkv_bwd_ref`` on the card
+    (``k5_bwd_check``; its planted faults must fail it), whether a second
+    call repeats the bits; the form training runs timed as in phase 4
+    beside the plain version (no single PyTorch call computes it: library
+    none).  Bound: 14 float32 FLOPs a state element and token (the
+    recompute and G's update, 3 each; four products summed, 2 each), or
+    the bytes of r, k, v, logw, dy (and the state and its cotangent) read
+    and of the gradients written; the checkpoints the kernels also read
+    are design, not the function's."""
+    label, B, T, H, N = K5_BWD_SHAPE
+    r, k, v, logw, u, s0, dy, ds = k5_inputs(torch, with_state)
+    with torch.no_grad():
+        _, _, ck = wkv_ops.wkv_fwd(r, k, v, logw, u, s0)
+
+        def bwd():
+            return wkv_ops.wkv_bwd(r, k, v, logw, u, s0, dy, ds, ckpt=ck)
+        got = bwd()
+        want = wkv_ref.wkv_bwd_ref(r, k, v, logw, u, s0, dy, ds)
+        # the planted fault: the last column group's columns zeroed
+        cols = slice(N - N // wkv_ops.BWD_GROUPS[N], N)
+
+        def drop(t):
+            if t is None:
+                return None
+            t = t.clone()
+            t[..., cols] = 0
+            return t
+        v2, dy2, s02, ds2 = (drop(t) for t in (v, dy, s0, ds))
+        _, _, ck2 = wkv_ops.wkv_fwd(r, k, v2, logw, u, s02)
+        dk_dropped = wkv_ops.wkv_bwd(r, k, v2, logw, u, s02, dy2, ds2,
+                                     ckpt=ck2)[1]
+        del v2, dy2, s02, ds2, ck2
+        check = k5_bwd_check(torch, got, want, dk_dropped)
+        if not (max(check["tol_ratio"].values()) <= 1
+                and min(check["fault_ratio"].values()) > 1):
+            raise AssertionError(f"K5 backward at {label}: {check}")
+        repeat = all(torch.equal(a, b) for a, b in zip(got, bwd()))
+        del got, want, dk_dropped
+        elems = B * T * H * N
+        byts = 4 * (9 * elems + 2 * H * N
+                    + (3 if with_state else 1) * B * H * N * N)
+        ops = 14 * elems * N
+        t_b, t_o = byts / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+        row = dict(
+            input=label, dtype="float32",
+            form="initial state and final-state cotangent" if with_state
+            else "neither (as training runs it)", **check,
+            bits_repeat=repeat,
+            **({} if with_state else timing(
+                bwd, lambda: wkv_ref.wkv_bwd_ref(r, k, v, logw, u, s0, dy,
+                                                 ds), plain_reps=2)),
+            bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b > t_o else "operations",
+            checkpoint_mb=ck.numel() * 4 / 1e6,
+            shape=f"r={tuple(r.shape)} float32 logw in "
+                  f"[{float(logw.min()):.3g}, {float(logw.max()):.3g}]")
+    torch.cuda.empty_cache()
+    return row
+
+
+def k5_fwd_train_row(torch, wkv_ops, wkv_ref):
+    """Phase 9 a: K5's forward as training runs it, saving a checkpoint
+    every 16 tokens (``wkv_fwd``), at ``K5_BWD_SHAPE`` from zero state: y
+    and the checkpoints within 1e-4 of their largest against the plain
+    versions, timed as in phase 4 beside them and beside the same forward
+    saving none (``no_checkpoints_ms``, by the row's own method, and
+    ``no_checkpoints_event_ms``: what prefill runs).  Bound: 4
+    FLOPs a state element and token, or the bytes of r, k, v, logw, u read
+    and of y, the final state and the checkpoints written."""
+    label, B, T, H, N = K5_BWD_SHAPE
+    r, k, v, logw, u, _, _, _ = k5_inputs(torch, False)
+    with torch.no_grad():
+        y, _, ck = wkv_ops.wkv_fwd(r, k, v, logw, u)
+        err = 0.0
+        for a, b in ((y, wkv_ref.wkv_ref(r, k, v, logw, u)[0]),
+                     (ck, wkv_ref.checkpoints_ref(k, v, logw, None,
+                                                  wkv_ops.CKPT_TOKENS))):
+            e = float((a - b).abs().max())
+            if not e <= 1e-4 * max(float(b.abs().max()), 1.0):
+                raise AssertionError(f"K5 forward saving checkpoints at "
+                                     f"{label}: {e}")
+            err = max(err, e)
+        del y
+        elems = B * T * H * N
+        byts = 4 * (5 * elems + H * N + B * H * N * N + ck.numel())
+        ops = 4 * elems * N
+        t_b, t_o = byts / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+        row = dict(
+            input=label, max_abs_err=err,
+            **timing(lambda: wkv_ops.wkv_fwd(r, k, v, logw, u),
+                     lambda: (wkv_ref.wkv_ref(r, k, v, logw, u),
+                              wkv_ref.checkpoints_ref(
+                                  k, v, logw, None, wkv_ops.CKPT_TOKENS)),
+                     plain_reps=2),
+            bound_ms=max(t_b, t_o),
+            bound_by="bytes" if t_b > t_o else "operations",
+            checkpoint_mb=ck.numel() * 4 / 1e6)
+        dev_ms, row["no_checkpoints_event_ms"], _ = timed(
+            lambda: wkv_ops.wkv(r, k, v, logw, u))
+        row["no_checkpoints_ms"] = (dev_ms if row["timed_by"] == "profiler"
+                                    else row["no_checkpoints_event_ms"])
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_family_steps(torch, dev, fa_ops, wkv_ops):
     """Phase 9 b: one make_train_step (AdamW, 2 microbatches of 2 x 16
-    tokens) of every attention family at .reduced() width in float32, on
-    the card and on the CPU from the same parameters and batch: loss and
-    grad_norm within 1e-4 relative; new parameters within 1e-5 + 1e-4 of
-    each entry's magnitude but at most 0.1% of entries (AdamW's first step
-    is about +-lr per entry, and where a gradient is within rounding of
-    zero its sign decides; every such entry still within 2 lr + 1e-6); K4
-    forward and backward launched on the card."""
+    tokens) of every trained family (the attention families and rwkv6-7b,
+    head size 8) at .reduced() width in float32, on the card and on the
+    CPU from the same parameters and batch: loss and grad_norm within 1e-4
+    relative; new parameters within 1e-5 + 1e-4 of each entry's magnitude
+    but at most 0.1% of entries (AdamW's first step is about +-lr per
+    entry, and where a gradient is within rounding of zero its sign
+    decides; every such entry still within 2 lr + 1e-6); the family's
+    kernel, forward and backward, launched on the card (K5 for rwkv, K4
+    for the rest)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import lm, steps
@@ -2377,14 +2608,20 @@ def lm_family_steps(torch, dev, fa_ops):
             opt = optim.adamw(lr)
             state = steps.init_train_state(model, opt)
             batch = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
-            f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+            before = {kn: (mod.launches, mod.bwd_launches) for kn, mod in
+                      (("K4", fa_ops), ("K5", wkv_ops))}
             _, m = steps.make_train_step(cfg, opt, q_chunk=8)(state, batch)
             res[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
                            lm.params_to_numpy(model),
-                           (fa_ops.launches - f0, fa_ops.bwd_launches - b0))
-        (lc, gc, pc, _), (la, ga, pa, k4) = res["cpu"], res[str(dev)]
-        if min(k4) < 1:
-            raise AssertionError(f"{name}: K4 launches on the card {k4}")
+                           {kn: (mod.launches - before[kn][0],
+                                 mod.bwd_launches - before[kn][1])
+                            for kn, mod in (("K4", fa_ops),
+                                            ("K5", wkv_ops))})
+        (lc, gc, pc, _), (la, ga, pa, counts) = res["cpu"], res[str(dev)]
+        kern = "K5" if cfg.block == "rwkv" else "K4"
+        if min(counts[kern]) < 1:
+            raise AssertionError(f"{name}: {kern} launches (forward, "
+                                 f"backward) on the card {counts[kern]}")
         for what, a, c in (("loss", la, lc), ("grad_norm", ga, gc)):
             if not abs(a - c) <= 1e-4 * abs(c):
                 raise AssertionError(f"{name} train step {what}: card {a}, "
@@ -2402,9 +2639,53 @@ def lm_family_steps(torch, dev, fa_ops):
         out[name] = {"loss_card": la, "loss_cpu": lc, "grad_norm_card": ga,
                      "grad_norm_cpu": gc, "max_param_diff": worst,
                      "params_off": f"{off} of {total}",
-                     "k4_launches_fwd_bwd": k4}
+                     "launches_fwd_bwd": {kern: counts[kern]}}
     log(f"[lm_train] reduced families, card vs CPU: {out}")
     return out
+
+
+def gate_readings(torch, cfg, model, batch, suffixes):
+    """One microbatch's loss and gradients (no optimizer): the loss, the
+    whole model's gradient norm and the norm of the gradients of the
+    parameters whose names end with each of ``suffixes``, over every
+    layer; the gradients are freed before it returns."""
+    from repro_torch.models import steps
+
+    def norm(gs):
+        return float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                    for g in gs)))
+    names = [n for n, _ in model.named_parameters()]
+    loss, _ = steps.compute_loss(model, cfg, batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    read = {"loss": float(loss.detach()), "grad_norm": norm(grads)}
+    for sfx in suffixes:
+        read[sfx] = norm(g for n, g in zip(names, grads) if n.endswith(sfx))
+    del loss, grads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return read
+
+
+def gate_verdict(out, tol, must_fail, what):
+    """The gate over ``out`` (side -> readings): the ``kernels`` and
+    ``repeat`` sides' readings within ``tol`` (relative) of the ``plain``
+    side's, the ``fault`` side's ``must_fail`` readings outside it; and
+    whether ``repeat`` repeats ``kernels`` bit for bit.  Raises otherwise;
+    returns the readings and their differences."""
+    want = out["plain"]
+
+    def rel(side, base=want):
+        return {k: abs(v - base[k]) / abs(base[k])
+                for k, v in out[side].items()}
+    gate = {"readings": out, "rel_diff": rel("kernels"),
+            "fault_rel_diff": rel("fault"), "tolerance": tol,
+            "repeat": {"identical": out["repeat"] == out["kernels"],
+                       "rel_diff": rel("repeat", out["kernels"])}}
+    if not (all(rel(side)[k] <= lim for side in ("kernels", "repeat")
+                for k, lim in tol.items())
+            and all(gate["fault_rel_diff"][k] > tol[k] for k in must_fail)):
+        raise AssertionError(f"gate: {what}: {gate}")
+    return gate
 
 
 def lm_train_gate(torch, cfg, model, batch, fa_ops):
@@ -2421,8 +2702,8 @@ def lm_train_gate(torch, cfg, model, batch, fa_ops):
     forward reading, as it is).  ``repeat`` reports whether the kernel
     side's readings repeat bit for bit (K4's backward adds nothing by
     atomics on the tensor cores; the rest of the step may)."""
-    from repro_torch.models import attention, steps
-    out = {}
+    from repro_torch.models import attention
+    out, launches = {}, {}
     attend, bwd = attention.attend, fa_ops.flash_attention_bwd
 
     def plain(q, k, v, *, causal=True, window=0, q_chunk=512, q_offset=0,
@@ -2433,10 +2714,6 @@ def lm_train_gate(torch, cfg, model, batch, fa_ops):
     def zeros(q, k, v, *args, **kwargs):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
 
-    def norm(gs):
-        return float(torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                    for g in gs)))
-    names = [n for n, _ in model.named_parameters()]
     for side in ("kernels", "plain", "repeat", "fault"):
         if side == "plain":
             attention.attend = plain
@@ -2444,42 +2721,75 @@ def lm_train_gate(torch, cfg, model, batch, fa_ops):
             fa_ops.flash_attention_bwd = zeros
         try:
             f0, b0 = fa_ops.launches, fa_ops.bwd_launches
-            loss, _ = steps.compute_loss(model, cfg, batch)
-            grads = torch.autograd.grad(loss, list(model.parameters()))
-            read = {"loss": float(loss.detach()), "grad_norm": norm(grads)}
-            for proj in ("attn.wq", "attn.wk", "attn.wv"):
-                read[proj] = norm(g for n, g in zip(names, grads)
-                                  if n.endswith(proj))
-            out[side] = (read, fa_ops.launches - f0, fa_ops.bwd_launches - b0)
-            del loss, grads
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
+            out[side] = gate_readings(torch, cfg, model, batch,
+                                      ("attn.wq", "attn.wk", "attn.wv"))
+            launches[side] = (fa_ops.launches - f0, fa_ops.bwd_launches - b0)
         finally:
             attention.attend, fa_ops.flash_attention_bwd = attend, bwd
-    launches = {side: out[side][1:] for side in out}
     if min(launches["kernels"] + launches["repeat"]) < 1 or \
             max(launches["plain"]) or launches["fault"][0] < 1:
         raise AssertionError(f"gate: K4 launches (fwd, bwd) by side "
                              f"{launches}")
-    want = out["plain"][0]
+    return gate_verdict(out, LM_TRAIN_GATE,
+                        ("grad_norm", "attn.wq", "attn.wk", "attn.wv"),
+                        "K4 and its backward against the plain attention")
 
-    def rel(side):
-        return {k: abs(v - want[k]) / abs(want[k])
-                for k, v in out[side][0].items()}
-    gate = {"readings": {side: out[side][0] for side in out},
-            "rel_diff": rel("kernels"), "fault_rel_diff": rel("fault"),
-            "tolerance": LM_TRAIN_GATE,
-            "repeat": {"identical": out["repeat"][0] == out["kernels"][0],
-                       "rel_diff": {k: abs(v - out["kernels"][0][k])
-                                    / abs(out["kernels"][0][k])
-                                    for k, v in out["repeat"][0].items()}}}
-    if not (all(rel(side)[k] <= lim for side in ("kernels", "repeat")
-                for k, lim in LM_TRAIN_GATE.items())
-            and all(gate["fault_rel_diff"][k] > LM_TRAIN_GATE[k]
-                    for k in ("grad_norm", "attn.wq", "attn.wk",
-                              "attn.wv"))):
-        raise AssertionError(f"gate: K4 and its backward against the plain "
-                             f"attention: {gate}")
+
+def rwkv_train_gate(torch, cfg, model, batch, wkv_ops, wkv_ref):
+    """Phase 9 e's gate: one microbatch's readings (``gate_readings``: the
+    loss, the gradient norm, and the time-mix r, k, v projections', decay
+    parameters' and u's gradient norms) with K5's backward kernel, each of
+    its calls also held to ``wkv_bwd_ref`` on the same inputs
+    (``LM_TRAIN_RWKV_CALL_TOL``); then with ``wkv_bwd_ref`` as K5's
+    backward on the card (the same forward kernel); then the kernel again
+    (``repeat``); then the kernel's dlogw planted to be zeros, which must
+    take the decay parameters' readings out of ``LM_TRAIN_RWKV_GATE``."""
+    launch = wkv_ops._backward
+    names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+    calls = []
+
+    def plain(r, k, v, logw, u, ckpt, dy, dstate, needs):
+        state = ckpt[:, :, 0] if ckpt.shape[2] else None
+        grads = wkv_ref.wkv_bwd_ref(r, k, v, logw, u, state, dy, dstate)
+        return [g if n else None for g, n in zip(grads, needs)]
+
+    def checked(*args):
+        got, want = launch(*args), plain(*args)
+        calls.append({n: float((a - b).abs().max()
+                               / b.abs().max().clamp_min(1e-30))
+                      for n, a, b in zip(names, got, want) if a is not None})
+        return got
+
+    def fault(*args):
+        grads = launch(*args)
+        if grads[3] is not None:
+            grads[3] = torch.zeros_like(grads[3])
+        return grads
+    out, launches = {}, {}
+    for side in ("kernels", "plain", "repeat", "fault"):
+        wkv_ops._backward = {"kernels": checked, "plain": plain,
+                             "fault": fault}.get(side, launch)
+        try:
+            f0, b0 = wkv_ops.launches, wkv_ops.bwd_launches
+            out[side] = gate_readings(torch, cfg, model, batch,
+                                      tuple(k for k in LM_TRAIN_RWKV_GATE
+                                            if k.startswith("tm.")))
+            launches[side] = (wkv_ops.launches - f0,
+                              wkv_ops.bwd_launches - b0)
+        finally:
+            wkv_ops._backward = launch
+    worst = {n: max(c.get(n, 0.0) for c in calls) for n in names}
+    if min(launches["kernels"] + launches["repeat"] + launches["fault"]) \
+            < 1 or launches["plain"][1] or not calls or \
+            max(worst.values()) > LM_TRAIN_RWKV_CALL_TOL:
+        raise AssertionError(f"gate: K5 launches (fwd, bwd) by side "
+                             f"{launches}; each call against wkv_bwd_ref: "
+                             f"{worst}")
+    gate = gate_verdict(out, LM_TRAIN_RWKV_GATE, LM_TRAIN_RWKV_FAULT,
+                        "K5's backward kernel against wkv_bwd_ref")
+    gate["calls"] = len(calls)
+    gate["call_rel_err"] = worst
+    gate["call_tolerance"] = LM_TRAIN_RWKV_CALL_TOL
     return gate
 
 
@@ -2490,22 +2800,26 @@ def visible_pairs(S, window):
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def full_width_step(torch, dev, fa_ops, arch, counted):
-    """Phase 9 c (llama3.2-3b) or d (recurrentgemma-2b): ``arch`` at full
-    width in bf16 (seeded weights), train_4k's 4096 tokens in 2
-    microbatches of 1 from a seeded TokenStore, AdamW with warmup_cosine
-    through the in-place update, remat: the gate (``lm_train_gate``), 1
-    warm-up step, ``counted`` steps with the counters zeroed, then the
-    first batch again, profiled.  Returns its report."""
+def full_width_step(torch, dev, fa_ops, wkv, arch, counted):
+    """Phase 9 c (llama3.2-3b), d (recurrentgemma-2b) or e (rwkv6-7b):
+    ``arch`` at full width in bf16 (seeded weights), train_4k's 4096
+    tokens in 2 microbatches of 1 from a seeded TokenStore, AdamW (rwkv:
+    Adafactor) with warmup_cosine through the in-place update, remat: the
+    gate (``lm_train_gate``; rwkv: ``rwkv_train_gate``), 1 warm-up step,
+    ``counted`` steps with the counters zeroed, then the first batch
+    again, profiled.  ``wkv``: K5's (ops, ref) modules.  Returns its
+    report."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import OutOfCoreTokenIterator, TokenStore
     from repro_torch.launch.train import device_batch
     from repro_torch.models import lm, steps
-    from repro_torch.train.optim import adamw, warmup_cosine
+    from repro_torch.train.optim import adafactor, adamw, warmup_cosine
 
+    wkv_ops, wkv_ref = wkv
     cfg = get_config(arch)
+    rwkv = cfg.block == "rwkv"
     shutil.rmtree(LM_TRAIN_DATA, ignore_errors=True)
     store = TokenStore(LM_TRAIN_DATA, n_sequences=64, seq_len=LM_TRAIN_SEQ,
                        vocab=cfg.vocab, n_shards=4, create=True,
@@ -2520,10 +2834,15 @@ def full_width_step(torch, dev, fa_ops, arch, counted):
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     first = device_batch(next(it), cfg, dev)
-    gate = lm_train_gate(torch, cfg, model, {k: v[0] for k, v in
-                                             first.items()}, fa_ops)
+    mb0 = {k: v[0] for k, v in first.items()}
+    if rwkv:
+        gate = rwkv_train_gate(torch, cfg, model, mb0, wkv_ops, wkv_ref)
+        opt = adafactor(warmup_cosine(*LM_TRAIN_LR))
+    else:
+        gate = lm_train_gate(torch, cfg, model, mb0, fa_ops)
+        opt = adamw(warmup_cosine(*LM_TRAIN_LR))
+    opt_name = f"{opt.name}, warmup_cosine{LM_TRAIN_LR}, in place"
     log(f"[lm_train] {arch} gate {gate}")
-    opt = adamw(warmup_cosine(*LM_TRAIN_LR))
     state = steps.init_train_state(model, opt)
     train = steps.make_train_step(cfg, opt)
     state, m0 = train(state, first)              # the warm-up step
@@ -2533,6 +2852,7 @@ def full_width_step(torch, dev, fa_ops, arch, counted):
     torch.cuda.reset_peak_memory_stats(dev)
     fa_ops.launches = fa_ops.bwd_launches = 0
     fa_ops.bwd_route_launches = dict.fromkeys(fa_ops.ROUTES, 0)
+    wkv_ops.launches = wkv_ops.bwd_launches = 0
     t0 = time.perf_counter()
     norms = []
     for b in batches:
@@ -2543,21 +2863,25 @@ def full_width_step(torch, dev, fa_ops, arch, counted):
     step_s = (time.perf_counter() - t0) / counted
     launches = {"K4_forward": fa_ops.launches,
                 "K4_backward": fa_ops.bwd_launches,
-                "K4_backward_by_route": dict(fa_ops.bwd_route_launches)}
+                "K4_backward_by_route": dict(fa_ops.bwd_route_launches),
+                "K5_forward": wkv_ops.launches,
+                "K5_backward": wkv_ops.bwd_launches}
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     # K4 forward twice per attention layer and microbatch (the remat
     # forward recomputes it), backward once, on the tensor cores (bf16 at
-    # hd 128 and 256)
-    pattern = cfg.pattern or ("attn",)
+    # hd 128 and 256); rwkv: K5 likewise per layer
+    pattern = cfg.pattern or ("rwkv" if rwkv else "attn",)
     n_attn = sum(pattern[i % len(pattern)] == "attn"
                  for i in range(cfg.n_layers))
     n_bwd = n_attn * LM_TRAIN_N_MB * counted
+    n_wkv = (cfg.n_layers if rwkv else 0) * LM_TRAIN_N_MB * counted
     want = {"K4_forward": 2 * n_bwd, "K4_backward": n_bwd,
             "K4_backward_by_route": {"tensor_cores": n_bwd,
-                                     "cuda_cores": 0}}
+                                     "cuda_cores": 0},
+            "K5_forward": 2 * n_wkv, "K5_backward": n_wkv}
     if launches != want:
-        raise AssertionError(f"lm_train {arch}: K4 launches {launches}, "
-                             f"expected {want}")
+        raise AssertionError(f"lm_train {arch}: K4 and K5 launches "
+                             f"{launches}, expected {want}")
     # the first step's batch again, profiled: its loss must be lower
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
@@ -2586,14 +2910,25 @@ def full_width_step(torch, dev, fa_ops, arch, counted):
                  ("backward_cuda_cores", "::bwd::flash_bwd_kernel"))}
     k4_ms["backward"] = sum(v for kind, v in k4_ms.items()
                             if kind.startswith("backward_"))
+    # K5's: the forward (twice a layer under remat), and the backward's
+    # kernel and its ordered sums (groups; du over the batch)
+    k5_ms = {kind: sum(e.self_device_time_total for e in prof.key_averages()
+                       if name in e.key) / 1e3
+             for kind, name in (("forward", "wkv6_kernel<"),
+                                ("backward_kernel", "wkv6_bwd_kernel<"),
+                                ("backward_group_sum", "wkv6_bwd_sum_kernel"),
+                                ("backward_du_sum", "wkv6_bwd_du_kernel"))}
+    k5_ms["backward"] = sum(v for kind, v in k5_ms.items()
+                            if kind.startswith("backward_"))
     # the step's device time by kind: K4, the cuBLAS GEMMs, the rest
     # (elementwise, reductions, copies, fills)
     gemm = sum(e.self_device_time_total for e in prof.key_averages()
                if e.key.startswith(("nvjet", "sm90_xmma", "cutlass"))
                or "gemm" in e.key.lower()) / 1e3
     k4_total = k4_ms["forward"] + k4_ms["backward"]
-    by_kind = {"K4": k4_total, "gemm": gemm,
-               "other": dev_ms - k4_total - gemm}
+    k5_total = k5_ms["forward"] + k5_ms["backward"]
+    by_kind = {"K4": k4_total, "K5": k5_total, "gemm": gemm,
+               "other": dev_ms - k4_total - k5_total - gemm}
     tokens = LM_TRAIN_SEQ * LM_TRAIN_MB * LM_TRAIN_N_MB
     n_mat = n_params - cfg.vocab * cfg.d_model       # the embedding lookup
     # attention pairs over the window only (recurrentgemma's 2048)
@@ -2608,7 +2943,7 @@ def full_width_step(torch, dev, fa_ops, arch, counted):
         "microbatch": LM_TRAIN_MB, "attention_layers": n_attn,
         "window": cfg.window if cfg.pattern else 0,
         "reduced": "global batch 256 -> 2 (train_4k: 256 x 4096 tokens)",
-        "optimizer": f"adamw, warmup_cosine{LM_TRAIN_LR}, in place",
+        "optimizer": opt_name,
         "init_s": init_s, "gate": gate,
         "ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
         "model_tflop_s": model_flops / step_s / 1e12,
@@ -2623,34 +2958,46 @@ def full_width_step(torch, dev, fa_ops, arch, counted):
         "device_busy_share": dev_ms / (step_s * 1e3),
         "device_busy_share_profiled_step": dev_ms / (prof_s * 1e3),
         "k4_device_ms_per_step": k4_ms,
+        "k5_device_ms_per_step": k5_ms,
         "device_ms_by_kind": by_kind,
         "device_ms_by_op": top_ops(prof, n=12)}
     log(f"[lm_train] {arch}: {report}")
     it.io.close()
-    del model, state, train, opt, first, batches, m, m0, it, prof
+    del model, state, train, opt, first, mb0, batches, m, m0, it, prof
     shutil.rmtree(LM_TRAIN_DATA, ignore_errors=True)
     torch.cuda.empty_cache()
     return report
 
 
-def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
+def phase_lm_train(torch, dev, F, fa_ops, fa_ref, wkv_ops, wkv_ref):
     """Phase 9 (see the module docstring).  Returns (the ``lm_train``
     report, K4's backward entries for the kernel line: llama3.2-3b's
-    layer, then recurrentgemma-2b's)."""
+    layer, then recurrentgemma-2b's, then K5's backward entry, then K5's
+    forward as rwkv6-7b's training runs it, for the ``wkv6`` entry)."""
     t_phase = time.perf_counter()
-    # a. K4's backward against its plain version, timed
+    # a. K4's backward against its plain version, timed; K5's backward and
+    # its forward saving checkpoints at rwkv6-7b's training layer
     rows = [k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype)
             for shape in K4_BWD_SHAPES for dtype in ("bfloat16", "float32")]
     log(f"[lm_train] a. K4 backward rows: {rows}")
+    k5_rows = [k5_bwd_row(torch, wkv_ops, wkv_ref, with_state)
+               for with_state in (False, True)]
+    k5_fwd = k5_fwd_train_row(torch, wkv_ops, wkv_ref)
+    log(f"[lm_train] a. K5 backward rows: {k5_rows}; forward saving "
+        f"checkpoints: {k5_fwd}")
     # b. reduced families, card against CPU
-    families = lm_family_steps(torch, dev, fa_ops)
-    # c. full-width llama3.2-3b; d. full-width recurrentgemma-2b
-    report = full_width_step(torch, dev, fa_ops, LM_TRAIN_ARCH,
+    families = lm_family_steps(torch, dev, fa_ops, wkv_ops)
+    # c. full-width llama3.2-3b; d. recurrentgemma-2b; e. rwkv6-7b
+    wkv = (wkv_ops, wkv_ref)
+    report = full_width_step(torch, dev, fa_ops, wkv, LM_TRAIN_ARCH,
                              LM_TRAIN_COUNTED)
     report["families"] = families
-    hybrid = full_width_step(torch, dev, fa_ops, LM_TRAIN_HYBRID,
+    hybrid = full_width_step(torch, dev, fa_ops, wkv, LM_TRAIN_HYBRID,
                              LM_TRAIN_HYBRID_COUNTED)
     report["hybrid"] = hybrid
+    ssm = full_width_step(torch, dev, fa_ops, wkv, LM_TRAIN_RWKV,
+                          LM_TRAIN_RWKV_COUNTED)
+    report["ssm"] = ssm
 
     def entry(row, run):
         return dict(
@@ -2675,8 +3022,28 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref):
     k4_bwd = [dict(entry(llama, report),
                    rows=[r for r in rows[1:] if r is not rg]),
               entry(rg, hybrid)]
+    n_bwd = ssm["launches"]["K5_backward"]
+    k5_bwd = dict(
+        name="wkv6_bwd", route="cuda",
+        source="src/repro_torch/csrc/rwkv_scan_bwd.cu",
+        replaces="the backward of src/repro/kernels/rwkv_scan/rwkv_scan.py:"
+                 "50; the reference differentiates models/rwkv6.py::"
+                 "wkv_chunked",
+        launches=n_bwd, launches_per_step=n_bwd // ssm["counted_steps"],
+        launches_on=ssm["config"],
+        device_ms_per_step=ssm["k5_device_ms_per_step"]["backward"],
+        **{key: k5_rows[0][key] for key in (
+            "max_abs_err", "tol_ratio", "tolerance", "atol_reading",
+            "ref_abs_mean", "ref_abs_max", "fault_ratio", "bits_repeat",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "timed_by", "event_ms", "per_launch_ms", "checkpoint_mb",
+            "input", "form", "dtype", "shape")},
+        rows=k5_rows[1:])
+    k5_fwd.update(launches_per_step=(ssm["launches"]["K5_forward"]
+                                     // ssm["counted_steps"]),
+                  device_ms_per_step=ssm["k5_device_ms_per_step"]["forward"])
     report["phase_s"] = time.perf_counter() - t_phase
-    return report, k4_bwd
+    return report, k4_bwd, k5_bwd, k5_fwd
 
 
 def serve(srv, workload):
@@ -3016,8 +3383,10 @@ def main(argv):
         phase_cpu_llm(torch, dev, fa_ops)
 
     # --- 9. the LM train step: K4's backward, families, full width --------
-    lm_train, k4_bwd = phase_lm_train(torch, dev, F, fa_ops, fa_ref)
-    kernels += k4_bwd
+    lm_train, k4_bwd, k5_bwd, k5_fwd = phase_lm_train(
+        torch, dev, F, fa_ops, fa_ref, wkv_ops, wkv_ref)
+    next(k for k in kernels if k["name"] == "wkv6")["training"] = k5_fwd
+    kernels += k4_bwd + [k5_bwd]
     log(f"[lm_train] phase in {lm_train['phase_s']:.1f} s")
 
     print(smi)

@@ -6,7 +6,8 @@ The port's twin of ``train_llm_tiered.py``: a reduced config trains on
 token sequences streamed from a seeded ``TokenStore`` through the async
 IO stack, two microbatches a step, AdamW with warmup-cosine, on the card
 unless ``--device cpu`` is given (then every kernel runs its plain
-version).
+version).  Every registered config trains on the card, rwkv6-7b through
+K5's forward and backward kernels.
 
     PYTHONPATH=src python examples/train_llm_tiered_torch.py --steps 60
     PYTHONPATH=src python examples/train_llm_tiered_torch.py --device cpu \\

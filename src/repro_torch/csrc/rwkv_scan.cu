@@ -4,7 +4,8 @@
 //   y_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * k_t[i] * v_t[j])
 //   S[i][j] <- exp(logw_t[i]) * S[i][j] + k_t[i] * v_t[j]
 //
-// from a given initial state, writing y and the final state.
+// from a given initial state, writing y and the final state and, for the
+// backward (csrc/rwkv_scan_bwd.cu), the state before every TB-th token.
 //
 // Replaces the TPU kernel src/repro/kernels/rwkv_scan/rwkv_scan.py::
 // wkv_pallas (_wkv_kernel), which runs a (BH, T/chunk) grid in order,
@@ -56,6 +57,7 @@ template <int N, int IC, int JT, int G, int TB, int NS>
 struct Cfg {
   static_assert(IC % 4 == 0 && N % IC == 0 && N % JT == 0, "tile shape");
   static_assert(NS >= 3 && TB % G == 0, "ring shape");
+  static_assert(TB == 16, "the backward reads a checkpoint every 16 tokens");
   static constexpr int kTPC = N / IC;             // threads per column group
   static constexpr int kCompute = kTPC * N / JT;  // threads holding state
   static constexpr int kThreads = (kCompute + 31) / 32 * 32;
@@ -174,7 +176,8 @@ template <int N, int IC, int JT, int G, int TB, int NS>
 __global__ void __launch_bounds__(Cfg<N, IC, JT, G, TB, NS>::kThreads)
     wkv6_kernel(const __grid_constant__ Maps maps, const float* __restrict__ u,
                 const float* __restrict__ s_in, float* __restrict__ y,
-                float* __restrict__ s_out, int T, int H) {
+                float* __restrict__ s_out, float* __restrict__ ckpt, int T,
+                int H) {
   using C = Cfg<N, IC, JT, G, TB, NS>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ uint64_t landed[NS];   // a ring slot's block has landed
@@ -241,6 +244,15 @@ __global__ void __launch_bounds__(Cfg<N, IC, JT, G, TB, NS>::kThreads)
     load(n + NS - 1);
     if (n + 1 < n_blocks) prep(n + 1);
     if (!computes) continue;
+    if (ckpt != nullptr) {   // the state before token n * TB
+      float* at = ckpt + (static_cast<int64_t>(bh) * n_blocks + n) * N * N;
+#pragma unroll
+      for (int q = 0; q < C::kChunks; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          store_cols<JT>(at + (4 * (q * C::kTPC + rg) + e) * N + jt,
+                         s[4 * q + e]);
+    }
     const float* buf = smem + (n % NS) * C::kBuf;
     const int t0 = n * TB, nb = min(TB, T - t0);
     // G tokens a step: y_g from the state before the group, then
@@ -340,8 +352,8 @@ CUresult make_map(CUtensorMap* map, const void* p, int B, int T, int H, int N,
 
 template <int N, int IC, int JT, int G, int TB, int NS>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* s_in, float* y, float* s_out, int B,
-           int T, int H, cudaStream_t stream) {
+           const float* u, const float* s_in, float* y, float* s_out,
+           float* ckpt, int B, int T, int H, cudaStream_t stream) {
   using C = Cfg<N, IC, JT, G, TB, NS>;
   Maps maps{};
   if (T > 0) {   // with no tokens the maps are never read
@@ -363,40 +375,43 @@ int launch(const float* r, const float* k, const float* v, const float* w,
     return true;
   }();
   (void)configured;
-  kernel<<<B * H, C::kThreads, C::kSmem, stream>>>(maps, u, s_in, y, s_out, T,
-                                                   H);
+  kernel<<<B * H, C::kThreads, C::kSmem, stream>>>(maps, u, s_in, y, s_out,
+                                                   ckpt, T, H);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // r, k, v, logw and y (B, T, H, N), u (H, N), s_in and s_out (B, H, N, N),
-// all float32, contiguous and 16-byte aligned; N is 8, 16, 32 or 64.
+// all float32, contiguous and 16-byte aligned; N is 8, 16, 32 or 64.  ckpt:
+// null, or (B, H, ceil(T / 16), N, N) for the state before tokens 0, 16,
+// 32, ... (the staging block is 16 tokens at every N).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // another N), or minus the CUresult when a tensor map cannot be built (-1000
 // when the driver has no cuTensorMapEncodeTiled).
 extern "C" int helios_wkv6(const void* r, const void* k, const void* v,
                            const void* logw, const void* u, const void* s_in,
-                           void* y, void* s_out, int B, int T, int H, int N,
-                           void* stream) {
+                           void* y, void* s_out, void* ckpt, int B, int T,
+                           int H, int N, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   float* yo = static_cast<float*>(y);
   float* so = static_cast<float*>(s_out);
+  float* ck = static_cast<float*>(ckpt);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (N) {   //   N  IC JT  G  TB  NS: threads = (N / IC) * (N / JT)
     case 8:
       return launch<8, 4, 1, 1, 16, 4>(f(r), f(k), f(v), f(logw), f(u),
-                                       f(s_in), yo, so, B, T, H, s);
+                                       f(s_in), yo, so, ck, B, T, H, s);
     case 16:
       return launch<16, 4, 2, 2, 16, 4>(f(r), f(k), f(v), f(logw), f(u),
-                                        f(s_in), yo, so, B, T, H, s);
+                                        f(s_in), yo, so, ck, B, T, H, s);
     case 32:
       return launch<32, 8, 2, 4, 16, 4>(f(r), f(k), f(v), f(logw), f(u),
-                                        f(s_in), yo, so, B, T, H, s);
+                                        f(s_in), yo, so, ck, B, T, H, s);
     case 64:
       return launch<64, 16, 4, 2, 16, 4>(f(r), f(k), f(v), f(logw), f(u),
-                                         f(s_in), yo, so, B, T, H, s);
+                                         f(s_in), yo, so, ck, B, T, H, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("cache_lookup", "gather", "segment_agg", "flash_attention",
-           "flash_attention_bwd", "rwkv_scan")
+           "flash_attention_bwd", "rwkv_scan", "rwkv_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -24,8 +24,8 @@ last step of this invocation (``start + --steps``), so a resumed run
 follows the schedule an uninterrupted one would; and the saved data
 cursor is that of the batches consumed, where the reference saves the
 iterator's cursor after its two prefetched batches and a resume skips
-them.  On the card rwkv6-7b raises: K5 has no backward yet (ROADMAP.md
-queue 1).
+them.  On the card every config trains: rwkv6-7b's WKV through K5 and
+its backward kernel (``kernels/rwkv_scan``), attention through K4's.
 """
 from __future__ import annotations
 

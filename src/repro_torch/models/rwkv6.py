@@ -1,10 +1,13 @@
 """RWKV-6 ("Finch") blocks: data-dependent decay linear attention (PyTorch
 port of ``repro.models.rwkv6``).
 
-Prefill runs the WKV recurrence through the K5 kernel (``wkv`` from
-``kernels/rwkv_scan``): the exact recurrence per token on the card, its plain
-version on the CPU, from a given state to the final state that becomes the
-decode cache.  The reference's ``wkv_chunked`` is not copied: its 16-token
+Prefill and training run the WKV recurrence through the K5 kernel (``wkv``
+from ``kernels/rwkv_scan``): the exact recurrence per token on the card, its
+plain version on the CPU, from a given state to the final state that
+becomes the decode cache.  Under grad on the card its gradient is K5's
+backward kernel (``WkvFn``), which recomputes the states from checkpoints
+the forward saves every 16 tokens; on the CPU autograd runs through the
+plain version.  The reference's ``wkv_chunked`` is not copied: its 16-token
 factorisation forms ``exp(-cumsum(logw))``, which overflows to inf (and
 NaN) once the clipped decays reach logw <= -6, and K5 computes the same
 recurrence without it.  Decode (``wkv_step``) is the exact single step in

@@ -7,6 +7,7 @@ imports no JAX, so it runs where the port runs:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -424,7 +425,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, lse_ref, visible)
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
-from repro_torch.kernels.rwkv_scan.ref import wkv_ref  # noqa: E402
+from repro_torch.kernels.rwkv_scan.ref import (  # noqa: E402
+    checkpoints_ref, wkv_bwd_ref, wkv_ref)
 from repro_torch.models import lm, steps  # noqa: E402
 
 
@@ -1193,21 +1195,29 @@ def test_gpu_flash_attention_keeps_grad_fn():
 
 
 def test_gpu_wkv_refuses_grad():
-    """K5 has no backward: on the card, under grad with an input that
-    requires grad, ``wkv`` raises NotImplementedError naming the queued
-    backward and launches nothing; under no_grad it runs."""
+    """K5 under grad on the card: with an input that requires grad ``wkv``
+    runs ``WkvFn`` (one forward launch, saving its checkpoints), and the
+    backward launches the backward kernel once, whose gradients agree with
+    the plain version's; under no_grad the plain launch records nothing.
+    (Before K5 had a backward this case held the refusal.)"""
     dev = _cuda()
     B, T, H, N = 1, 8, 2, 16
     r, k, v = (torch.randn(B, T, H, N, device=dev) for _ in range(3))
     logw = -torch.rand(B, T, H, N, device=dev) - 0.1
     u = torch.randn(H, N, device=dev, requires_grad=True)
-    before = wkv_ops.launches
-    with pytest.raises(NotImplementedError, match="backward"):
-        wkv_ops.wkv(r, k, v, logw, u)
-    assert wkv_ops.launches == before
+    f0, b0 = wkv_ops.launches, wkv_ops.bwd_launches
+    y, _ = wkv_ops.wkv(r, k, v, logw, u)
+    assert type(y.grad_fn).__name__ == "WkvFnBackward"
+    assert wkv_ops.launches == f0 + 1
+    dy = torch.randn_like(y)
+    (du,) = torch.autograd.grad(y, [u], dy)
+    torch.cuda.synchronize()
+    assert wkv_ops.bwd_launches == b0 + 1
+    want = wkv_bwd_ref(r, k, v, logw, u.detach(), None, dy, None)[4]
+    assert float((du - want).abs().max()) <= 1e-4 * float(want.abs().max())
     with torch.no_grad():
         y, _ = wkv_ops.wkv(r, k, v, logw, u)
-    assert wkv_ops.launches == before + 1 and y.grad_fn is None
+    assert wkv_ops.launches == f0 + 2 and y.grad_fn is None
 
 
 @pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128),
@@ -1280,3 +1290,153 @@ def test_gpu_flash_attention_bwd_repeats_bit_for_bit():
         assert fa_ops.bwd_route_launches["tensor_cores"] == before + 2
         for x, y in zip(a, b):
             assert torch.isfinite(x.float()).all() and torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# K5's backward
+# ---------------------------------------------------------------------------
+
+WKV_BWD_NAMES = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
+
+
+def _wkv_bwd_case(g, dev, B, T, H, N, lw, with_state):
+    """Seeded inputs: r, k, v, logw (constant ``lw``, or None: -exp of
+    log-uniform over [1e-4, 20]), u, the initial state and the final
+    state's cotangent (both None unless ``with_state``), dy."""
+    r, k, v, dy = (torch.randn(B, T, H, N, generator=g, device=dev)
+                   for _ in range(4))
+    logw = (torch.full((B, T, H, N), lw, device=dev) if lw is not None
+            else -torch.exp(math.log(1e-4) + math.log(2e5) * torch.rand(
+                B, T, H, N, generator=g, device=dev)))
+    u = torch.randn(H, N, generator=g, device=dev) * 0.3
+    s0, ds = ((torch.randn(B, H, N, N, generator=g, device=dev)
+               for _ in range(2)) if with_state else (None, None))
+    return r, k, v, logw, u, s0, dy, ds
+
+
+def _wkv_bwd_check(got, want, what):
+    """Every gradient within 1e-4 of its largest |want| (float32 sums in
+    another order over up to 4096 decayed terms)."""
+    for name, a, b in zip(WKV_BWD_NAMES, got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), \
+            (what, name)
+        if b.numel():
+            err = float((a - b).abs().max())
+            assert err <= 1e-4 * max(float(b.abs().max()), 1e-30), \
+                (what, name, err, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("N", [8, 16, 32, 64])
+def test_gpu_wkv_bwd_matches_plain(N):
+    """K5's backward against ``wkv_bwd_ref`` on the card at T in {1, 17,
+    64, 100, 4096}, B in {1, 3}, with and without an initial state and a
+    final-state cotangent, logw at -1e-4, -20 and spread over the clip
+    range: every gradient within 1e-4 of its largest magnitude, one
+    backward launch a call."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(N + 1)
+    for T in (1, 17, 64, 100, 4096):
+        for B in (1, 3):
+            for with_state in (True, False):
+                for lw in (-1e-4, -20.0, None):
+                    r, k, v, logw, u, s0, dy, ds = _wkv_bwd_case(
+                        g, dev, B, T, 2, N, lw, with_state)
+                    _, _, ck = wkv_ops.wkv_fwd(r, k, v, logw, u, s0)
+                    before = wkv_ops.bwd_launches
+                    got = wkv_ops.wkv_bwd(r, k, v, logw, u, s0, dy, ds,
+                                          ckpt=ck)
+                    torch.cuda.synchronize()
+                    assert wkv_ops.bwd_launches == before + 1
+                    want = wkv_bwd_ref(r, k, v, logw, u, s0, dy, ds)
+                    _wkv_bwd_check(got, want, (T, B, with_state, lw))
+
+
+def test_gpu_wkv_saves_checkpoints():
+    """The forward under ``wkv_fwd`` saves the state before every 16th
+    token (``ref.checkpoints_ref``, within 1e-4 of the largest), and its y
+    and final state are those of a forward that saves none."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(3)
+    for T, N in ((0, 16), (1, 64), (17, 8), (100, 32), (1000, 64)):
+        r, k, v, logw, u, s0, _, _ = _wkv_bwd_case(g, dev, 2, T, 3, N, None,
+                                                   True)
+        y, s, ck = wkv_ops.wkv_fwd(r, k, v, logw, u, s0)
+        want = checkpoints_ref(k, v, logw, s0, wkv_ops.CKPT_TOKENS)
+        assert ck.shape == want.shape
+        if want.numel():
+            assert float((ck - want).abs().max()) <= 1e-4 * float(
+                want.abs().max())
+        y2, s2 = wkv_ops.wkv(r, k, v, logw, u, s0)
+        assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_gpu_wkv_bwd_repeats_bit_for_bit():
+    """No atomics: the same backward twice gives the same bits, at
+    rwkv6-7b's head size (four column groups added in order) and at 32."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(9)
+    for N in (64, 32):
+        r, k, v, logw, u, s0, dy, ds = _wkv_bwd_case(g, dev, 2, 1000, 8, N,
+                                                     None, True)
+        _, _, ck = wkv_ops.wkv_fwd(r, k, v, logw, u, s0)
+        a, b = (wkv_ops.wkv_bwd(r, k, v, logw, u, s0, dy, ds, ckpt=ck)
+                for _ in range(2))
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_gpu_wkv_grad_through_autograd_and_remat():
+    """``wkv`` under autograd (every input requiring grad, a final-state
+    cotangent) and under ``torch.utils.checkpoint`` (the forward launched
+    again in the backward) gives the plain version's gradients; only u
+    requiring grad gives du alone."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(4)
+    r, k, v, logw, u, s0, dy, ds = _wkv_bwd_case(g, dev, 2, 77, 4, 64, None,
+                                                 True)
+    want = wkv_bwd_ref(r, k, v, logw, u, s0, dy, ds)
+    for remat in (False, True):
+        ins = [t.clone().requires_grad_() for t in (r, k, v, logw, u, s0)]
+        f0 = wkv_ops.launches
+
+        def run(*a):
+            return wkv_ops.wkv(*a)
+        y, s = (torch.utils.checkpoint.checkpoint(run, *ins,
+                                                  use_reentrant=False)
+                if remat else run(*ins))
+        got = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), ins)
+        torch.cuda.synchronize()
+        assert wkv_ops.launches == f0 + (2 if remat else 1)
+        _wkv_bwd_check(got, want, f"remat={remat}")
+    uu = u.clone().requires_grad_()
+    y, _ = wkv_ops.wkv(r, k, v, logw, uu, s0)
+    (du,) = torch.autograd.grad(y, [uu], dy)
+    assert float((du - want[4]).abs().max()) <= 1e-4 * float(
+        want[4].abs().max())
+
+
+def test_gpu_wkv_bwd_refuses_other_forms():
+    """Under grad, a form the kernels do not take (head size, dtype,
+    layout, alignment) raises before any launch; ``wkv_bwd`` on the card
+    needs the forward's checkpoints."""
+    dev = _cuda()
+    f0, b0 = wkv_ops.launches, wkv_ops.bwd_launches
+    u8 = torch.zeros(2, 8, device=dev, requires_grad=True)
+    r = torch.zeros(1, 4, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="head size"):
+        z = torch.zeros(1, 4, 1, 128, device=dev)
+        wkv_ops.wkv(z, z, z, z, torch.zeros(1, 128, device=dev,
+                                            requires_grad=True))
+    with pytest.raises(TypeError, match="float32"):
+        wkv_ops.wkv(r.double(), r.double(), r.double(), r.double(),
+                    u8.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        t = torch.zeros(1, 2, 4, 8, device=dev).transpose(1, 2)
+        wkv_ops.wkv(t, t, t, t, u8)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(65, device=dev)[1:].view(1, 4, 2, 8)
+        wkv_ops.wkv(shifted, r, r, r, u8)
+    assert (wkv_ops.launches, wkv_ops.bwd_launches) == (f0, b0)
+    with pytest.raises(ValueError, match="checkpoints"):
+        wkv_ops.wkv_bwd(r, r, r, r, u8.detach(), None, r)

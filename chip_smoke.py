@@ -9,7 +9,8 @@ train step (K4 and K5, forward and backward) at full width.
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
                                                     # of another checkout
     python3 chip_smoke.py --lm-kernels OTHER/src    # phase 1, K4's forward
-                                                    # rows and phase 9 a,
+                                                    # rows and phase 9 a
+                                                    # (K4's and K5's rows),
                                                     # of another checkout
 
 Imports nothing of JAX and nothing of the reference package.  Phases; any
@@ -19,7 +20,8 @@ failure raises and the script exits non-zero:
                csrc with nvcc for sm_90a (one process per source, at once),
                print each kernel's registers and spills, and fail if the
                hd-256 tensor-core forward (``flash_fwd_tc_kernel<256>``)
-               spills;
+               or a kernel of K5's backward (its carry and chunk kernels)
+               spills (``NO_SPILL``);
   2. edges   — each kernel against its plain PyTorch version on the card
                at the edge cases (K1: B in {1, 1023, 1024, 1025, 65,537,
                150,000}, mixed tiers with remote and out-of-range ids,
@@ -209,11 +211,12 @@ failure raises and the script exits non-zero:
                and with both: every entry of dr, dk, dv, dlogw, du and
                the initial state's gradient against ``wkv_bwd_ref`` on
                the card (``k5_bwd_check``, ``K5_BWD_TOL``), one chunk of
-               dlogw zeroed and one column group's dk partial dropped
-               must fail that, whether a second call repeats the bits;
-               timed beside the plain version (library: none), and K5's
-               forward saving checkpoints at the same shape beside the
-               same forward saving none;
+               dlogw zeroed and dk with the last cluster rank's columns
+               zeroed must fail that, whether a second call repeats the
+               bits; timed beside the plain version (library: none), each
+               of its kernels' times, their registers, shared memory and
+               resident warps an SM; and K5's forward saving checkpoints
+               at the same shape beside the same forward saving none;
                b. one make_train_step (AdamW, 2 microbatches) of the
                dense, MoE, hybrid, vision, audio and rwkv configs at
                .reduced() width in float32 on the card and on the CPU:
@@ -257,7 +260,8 @@ failure raises and the script exits non-zero:
                decay parameters' readings must fail it; 1 warm-up and 2
                counted steps (K5's forward twice a layer and microbatch
                under remat, 128 a step, its backward 64), the first batch
-               again; K5's device ms a step by kernel.
+               again; K5's device ms a step by kernel (the backward's
+               exp(logw), carry, chunk and du kernels apart).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (K1-K5, K4's backward at llama's and recurrentgemma's layers and K5's at
@@ -271,7 +275,8 @@ and prints the card, a ``{"gnn_kernels_of": DIR, "kernels": [...]}`` line
 and the last line.  With ``--lm-kernels DIR`` likewise phase 1, K4's
 forward on seeded inputs at recurrentgemma-2b's layer shape (window 2048)
 and llama3.2-3b's (``LM_KERNEL_SHAPES``), and phase 9 a (K4's backward
-rows), to time two trees' K4 in one call, and a
+rows, K5's backward row without a state and its forward saving
+checkpoints), to time two trees' K4 and K5 in one call, and a
 ``{"lm_kernels_of": DIR, "kernels": [...]}`` line.  Without a CUDA device,
 or outside a checkout of the repository, it prints no result and exits
 non-zero.
@@ -348,8 +353,12 @@ LM_KERNEL_SHAPES = (
     ("recurrentgemma-2b layer 2, window 2048", 4, 4096, 4096, 10, 1, 256,
      True, 2048),
     ("llama3.2-3b layer 0", 4, 1024, 1024, 24, 8, 128, True, 0))
-# the kernel that must build with no spill (phase 1): K4's hd-256 forward
-NO_SPILL = ("flash_attention", "flash_fwd_tc_kernelILi256E")
+# the kernels that must build with no spill (phase 1), (library, a part of
+# the mangled name): K4's hd-256 forward, K5's backward carry and chunk
+# kernels (the latter held to 64 registers at N 64, 4 CTAs an SM)
+NO_SPILL = (("flash_attention", "flash_fwd_tc_kernelILi256E"),
+            ("rwkv_scan_bwd", "wkv6_bwd_carry_kernel"),
+            ("rwkv_scan_bwd", "wkv6_bwd_chunk_kernel"))
 # K4's backward at the training shapes: (label, B, S, T, H, K, hd, causal,
 # window); the first is llama3.2-3b's layer at train_4k
 K4_BWD_SHAPES = (
@@ -2416,9 +2425,9 @@ def k5_bwd_check(torch, got, want, dk_dropped):
     (|got - want| - rtol |want|) / mean|want|; and ``fault_ratio``, the
     per-entry ratio with one 16-token chunk of dlogw zeroed (from the
     middle token on) and with ``dk_dropped``, dk from the kernels run with
-    the last column group's columns of v, dy, the state and its cotangent
-    zeroed (that group's partial left out of dk), each of which must exceed
-    1."""
+    the last cluster rank's columns of v, dy, the state and its cotangent
+    zeroed (that rank's partial left out of dk's cluster sum), each of
+    which must exceed 1."""
     rtol, atol = K5_BWD_TOL
     names = ("dr", "dk", "dv", "dlogw", "du", "dstate0")
     means = [float(b.abs().mean()) for b in want]
@@ -2445,7 +2454,7 @@ def k5_bwd_check(torch, got, want, dk_dropped):
                             for n, b in zip(names, want)},
             "fault_ratio": {f"dlogw tokens {lo}:{lo + 16} zeroed":
                             ratio(3, bad),
-                            "dk without the last column group's partial":
+                            "dk with the last rank's columns zeroed":
                             ratio(1, dk_dropped)}}
 
 
@@ -2488,8 +2497,11 @@ def k5_bwd_row(torch, wkv_ops, wkv_ref, with_state):
             return wkv_ops.wkv_bwd(r, k, v, logw, u, s0, dy, ds, ckpt=ck)
         got = bwd()
         want = wkv_ref.wkv_bwd_ref(r, k, v, logw, u, s0, dy, ds)
-        # the planted fault: the last column group's columns zeroed
-        cols = slice(N - N // wkv_ops.BWD_GROUPS[N], N)
+        # the planted fault: the last cluster rank's columns zeroed (a
+        # tree before clusters: its last column group's)
+        ranks = getattr(wkv_ops, "BWD_CLUSTER", None) or \
+            getattr(wkv_ops, "BWD_GROUPS")
+        cols = slice(N - N // ranks[N], N)
 
         def drop(t):
             if t is None:
@@ -2523,11 +2535,34 @@ def k5_bwd_row(torch, wkv_ops, wkv_ref, with_state):
                                                  ds), plain_reps=2)),
             bound_ms=max(t_b, t_o),
             bound_by="bytes" if t_b > t_o else "operations",
+            bound_bytes_ms=t_b, bound_operations_ms=t_o,
             checkpoint_mb=ck.numel() * 4 / 1e6,
+            kernels=k5_bwd_kernels(wkv_ops, N),
             shape=f"r={tuple(r.shape)} float32 logw in "
                   f"[{float(logw.min()):.3g}, {float(logw.max()):.3g}]")
     torch.cuda.empty_cache()
     return row
+
+
+def k5_bwd_kernels(wkv_ops, N):
+    """K5's backward kernels at head size N: registers and spills from the
+    build log (``build.ptxas_report``) and, where the tree has
+    ``bwd_occupancy``, each kernel's threads, shared memory and resident
+    CTAs and warps an SM, and the chunk kernel's cluster."""
+    from repro_torch.kernels import build
+    # the kernels of head size N: their template's first argument
+    regs = {name: {k: r[k] for k in ("registers", "spill_stores",
+                                     "spill_loads")}
+            for name, r in build.ptxas_report("rwkv_scan_bwd").items()
+            if f"ILi{N}E" in name}
+    out = {"ptxas": regs}
+    if hasattr(wkv_ops, "bwd_occupancy"):
+        occ = wkv_ops.bwd_occupancy(N)
+        for kind in ("carry", "chunk"):
+            occ[f"{kind}_warps_per_sm"] = (occ[f"{kind}_ctas_per_sm"]
+                                           * occ[f"{kind}_threads"] // 32)
+        out["occupancy"] = occ
+    return out
 
 
 def k5_fwd_train_row(torch, wkv_ops, wkv_ref):
@@ -2911,12 +2946,14 @@ def full_width_step(torch, dev, fa_ops, wkv, arch, counted):
     k4_ms["backward"] = sum(v for kind, v in k4_ms.items()
                             if kind.startswith("backward_"))
     # K5's: the forward (twice a layer under remat), and the backward's
-    # kernel and its ordered sums (groups; du over the batch)
+    # exp(logw), carry across the chunk boundaries, chunk kernel and du's
+    # ordered sum
     k5_ms = {kind: sum(e.self_device_time_total for e in prof.key_averages()
                        if name in e.key) / 1e3
              for kind, name in (("forward", "wkv6_kernel<"),
-                                ("backward_kernel", "wkv6_bwd_kernel<"),
-                                ("backward_group_sum", "wkv6_bwd_sum_kernel"),
+                                ("backward_decay", "wkv6_bwd_decay_kernel"),
+                                ("backward_carry", "wkv6_bwd_carry_kernel"),
+                                ("backward_chunks", "wkv6_bwd_chunk_kernel"),
                                 ("backward_du_sum", "wkv6_bwd_du_kernel"))}
     k5_ms["backward"] = sum(v for kind, v in k5_ms.items()
                             if kind.startswith("backward_"))
@@ -3037,6 +3074,7 @@ def phase_lm_train(torch, dev, F, fa_ops, fa_ref, wkv_ops, wkv_ref):
             "ref_abs_mean", "ref_abs_max", "fault_ratio", "bits_repeat",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "timed_by", "event_ms", "per_launch_ms", "checkpoint_mb",
+            "bound_bytes_ms", "bound_operations_ms", "kernels",
             "input", "form", "dtype", "shape")},
         rows=k5_rows[1:])
     k5_fwd.update(launches_per_step=(ssm["launches"]["K5_forward"]
@@ -3092,7 +3130,8 @@ def main(argv):
 
     # --- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = build.build_all(("flash_attention", "flash_attention_bwd")
+    libs = build.build_all(("flash_attention", "flash_attention_bwd",
+                            "rwkv_scan", "rwkv_scan_bwd")
                            if lm_only else build.KERNELS)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
@@ -3109,9 +3148,11 @@ def main(argv):
                          "spill" in ln and ", 0 bytes spill stores, 0 "
                          "bytes spill loads" not in ln)]
         log(f"[build] {name}: " + " | ".join(lines))
-    # such a tree has no hd-256 tensor-core kernel to check either
-    if hasattr(build, "ptxas_report"):
-        lib, kernel = NO_SPILL
+    # such a tree has no hd-256 tensor-core kernel to check either, and a
+    # tree before K5's clusters (``--lm-kernels``) no carry or chunk kernel
+    for lib, kernel in NO_SPILL if hasattr(build, "ptxas_report") else ():
+        if lib == "rwkv_scan_bwd" and not hasattr(wkv_ops, "BWD_CLUSTER"):
+            continue
         found = {n: r for n, r in build.ptxas_report(lib).items()
                  if kernel in n}
         if not found or any(r["spill_stores"] or r["spill_loads"]
@@ -3121,13 +3162,17 @@ def main(argv):
         log(f"[build] {kernel}: {list(found.values())}")
 
     if lm_only:     # K4's forward rows and phase 9 a, with this package's K4
-        import torch.nn.functional as F
+        import torch.nn.functional as F       # and K5
         rows = k4_fwd_rows(torch, F, fa_ops, fa_ref)
         rows += [dict(name="flash_attention_bwd",
                       **k4_bwd_row(torch, F, fa_ops, fa_ref, shape, dtype))
                  for shape in K4_BWD_SHAPES
                  for dtype in ("bfloat16", "float32")]
-        log(f"[lm_kernels] K4 backward rows of {pkg}: {rows}")
+        rows.append(dict(name="wkv6_bwd", **k5_bwd_row(torch, wkv_ops,
+                                                       wkv_ref, False)))
+        rows.append(dict(name="wkv6", form="saving checkpoints",
+                         **k5_fwd_train_row(torch, wkv_ops, wkv_ref)))
+        log(f"[lm_kernels] K4 and K5 rows of {pkg}: {rows}")
         print(smi)
         print(json.dumps({"lm_kernels_of": pkg, "kernels": rows}))
         print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,14 @@ do not take, before any launch.
 Under grad on the card (an input that requires grad) ``wkv`` runs
 ``WkvFn``: the forward kernel also saves the state before every
 ``CKPT_TOKENS``-th token, and the backward launches ``csrc/rwkv_scan_bwd.cu``
-(``wkv_bwd``, counted in ``bwd_launches``), which recomputes each chunk's
-states from its checkpoint and walks the chunks backwards, one CTA per
-(batch, head, group of value columns), with the groups' partial sums added
-in order by a second kernel: no atomics, so two runs give the same bits.
+(``wkv_bwd``, counted in ``bwd_launches``): exp(logw) once, then a carry
+kernel takes the state's cotangent across the chunk boundaries alone,
+then a chunk kernel runs every chunk at once from its checkpoint and that
+cotangent, one thread-block cluster per (batch, head,
+``BWD_CHUNKS_PER_CTA`` chunks) whose ``BWD_CLUSTER[N]`` CTAs (groups of
+value columns and rows) add their partial sums in order through
+distributed shared memory; du's partials are added in order by a last
+kernel.  No atomics, so two runs give the same bits.
 """
 from __future__ import annotations
 
@@ -31,12 +35,17 @@ bwd_launches = 0    # backward launches (each one call of the kernels)
 HEAD_SIZES = (8, 16, 32, 64)
 ALIGN = 16          # bytes
 CKPT_TOKENS = 16    # tokens between the forward's checkpoints
-# the backward's CTAs per (batch, head) by head size: groups of 8 (N 8) or
-# 16 value columns (csrc/rwkv_scan_bwd.cu's dispatch)
-BWD_GROUPS = {8: 1, 16: 1, 32: 2, 64: 4}
+# the backward's chunk kernel: CTAs of a cluster by head size, one per group
+# of 8 (N 8) or 16 value columns (csrc/rwkv_scan_bwd.cu's dispatch), and
+# the chunks a cluster walks (kPer there)
+BWD_CLUSTER = {8: 1, 16: 1, 32: 2, 64: 4}
+BWD_CHUNKS_PER_CTA = 4
 
 _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_OCCUPANCY = ("carry_threads", "carry_smem_bytes", "carry_ctas_per_sm",
+              "chunk_threads", "chunk_smem_bytes", "chunk_ctas_per_sm",
+              "cluster", "max_active_clusters")
 
 
 def _lib() -> ctypes.CDLL:
@@ -50,7 +59,21 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("rwkv_scan_bwd")
     lib.helios_wkv6_bwd.argtypes = _BWD_ARGS
     lib.helios_wkv6_bwd.restype = ctypes.c_int
+    lib.helios_wkv6_bwd_occupancy.argtypes = [ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.helios_wkv6_bwd_occupancy.restype = ctypes.c_int
     return lib
+
+
+def bwd_occupancy(N: int) -> dict:
+    """The backward kernels at head size ``N`` on the current card: each
+    one's threads, dynamic shared memory and resident CTAs an SM (carry,
+    then chunk), the chunk kernel's cluster size and how many of its
+    clusters the card holds at once (CUDA's occupancy calculator)."""
+    lib = _bwd_lib()
+    out = (ctypes.c_int * len(_OCCUPANCY))()
+    build.check(lib, lib.helios_wkv6_bwd_occupancy(N, out), "wkv_bwd")
+    return dict(zip(_OCCUPANCY, out))
 
 
 def _check(r, k, v, logw, u, state) -> None:
@@ -204,9 +227,9 @@ def _forward(r, k, v, logw, u, state, checkpoints: bool):
 
 
 def _backward(r, k, v, logw, u, ckpt, dy, dstate, needs):
-    """One backward call (the kernel, then the ordered sums) on checked
-    CUDA tensors: ``[dr, dk, dv, dlogw, du, dstate0]``, None where
-    ``needs`` (one flag each) is False."""
+    """One backward call (exp(logw), the carry, the chunk kernel, du's
+    ordered sum) on checked CUDA tensors: ``[dr, dk, dv, dlogw, du,
+    dstate0]``, None where ``needs`` (one flag each) is False."""
     global bwd_launches
     B, T, H, N = r.shape
     want = {"dy": (dy, r.shape), "ckpt": (ckpt, (B, H, -(-T // CKPT_TOKENS),
@@ -231,11 +254,16 @@ def _backward(r, k, v, logw, u, ckpt, dy, dstate, needs):
         if outs[4] is not None:     # no batch: du sums nothing
             outs[4].zero_()
         return outs
-    groups = BWD_GROUPS[N]
-    part = (torch.empty((3, groups, B, T, H, N), dtype=f32, device=dev)
-            if groups > 1 and (needs[0] or needs[1] or needs[3]) else None)
-    du_part = (torch.empty((groups, B, H, N), dtype=f32, device=dev)
-               if needs[4] else None)
+    # G after every chunk (the checkpoints' size), du's partial per (batch,
+    # cluster's group of chunks)
+    n_chunks = -(-T // CKPT_TOKENS)
+    gend = (torch.empty((B, H, n_chunks, N, N), dtype=f32, device=dev)
+            if any(needs[:5]) else None)
+    du_part = (torch.empty((B, -(-n_chunks // BWD_CHUNKS_PER_CTA), H, N),
+                           dtype=f32, device=dev) if needs[4] else None)
+    # exp(logw) once, over whole chunks (1 past T)
+    w = (torch.empty((B, n_chunks * CKPT_TOKENS, H, N), dtype=f32,
+                     device=dev) if T else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -244,9 +272,13 @@ def _backward(r, k, v, logw, u, ckpt, dy, dstate, needs):
     rc = lib.helios_wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), ckpt.data_ptr(), dy.data_ptr(), ptr(dstate), ptr(dr),
-        ptr(dk), ptr(dv), ptr(dlogw), ptr(du), ptr(ds0), ptr(part),
-        ptr(du_part), B, T, H, N, groups,
+        ptr(dk), ptr(dv), ptr(dlogw), ptr(du), ptr(ds0), ptr(gend),
+        ptr(du_part), ptr(w), B, T, H, N, BWD_CLUSTER[N], BWD_CHUNKS_PER_CTA,
         torch.cuda.current_stream(dev).cuda_stream)
+    if rc < 0:
+        raise RuntimeError(f"wkv_bwd: no TMA descriptor for r/k/v/logw/dy "
+                           f"(CUresult {-rc}; 1000: the driver has no "
+                           "cuTensorMapEncodeTiled)")
     build.check(lib, rc, "wkv_bwd")
     bwd_launches += 1
     return outs

@@ -1328,15 +1328,16 @@ def _wkv_bwd_check(got, want, what):
 
 @pytest.mark.parametrize("N", [8, 16, 32, 64])
 def test_gpu_wkv_bwd_matches_plain(N):
-    """K5's backward against ``wkv_bwd_ref`` on the card at T in {1, 17,
-    64, 100, 4096}, B in {1, 3}, with and without an initial state and a
-    final-state cotangent, logw at -1e-4, -20 and spread over the clip
-    range: every gradient within 1e-4 of its largest magnitude, one
-    backward launch a call."""
+    """K5's backward against ``wkv_bwd_ref`` on the card at T a multiple of
+    16 (16, 32, 48, 64, 4096) and ragged (0, 1, 17, 100), B in {1, 2, 3}
+    (B 2 not at 4096), with and without an initial state and a final-state
+    cotangent, logw at -1e-4, -20 and spread over the clip range: every
+    gradient within 1e-4 of its largest magnitude, one backward launch a
+    call."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(N + 1)
-    for T in (1, 17, 64, 100, 4096):
-        for B in (1, 3):
+    for T in (0, 1, 16, 17, 32, 48, 64, 100, 4096):
+        for B in ((1, 3) if T == 4096 else (1, 2, 3)):
             for with_state in (True, False):
                 for lw in (-1e-4, -20.0, None):
                     r, k, v, logw, u, s0, dy, ds = _wkv_bwd_case(
@@ -1349,6 +1350,39 @@ def test_gpu_wkv_bwd_matches_plain(N):
                     assert wkv_ops.bwd_launches == before + 1
                     want = wkv_bwd_ref(r, k, v, logw, u, s0, dy, ds)
                     _wkv_bwd_check(got, want, (T, B, with_state, lw))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_gpu_wkv_bwd_at_the_train_layer(with_state):
+    """rwkv6-7b's training layer, (1, 4096, 64, 64), logw spread over the
+    clip range, from zero state with no final-state cotangent (as training
+    runs it) and with both: every gradient within 1e-4 of its largest
+    magnitude against ``wkv_bwd_ref``."""
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(64 + with_state)
+    r, k, v, logw, u, s0, dy, ds = _wkv_bwd_case(g, dev, 1, 4096, 64, 64,
+                                                 None, with_state)
+    _, _, ck = wkv_ops.wkv_fwd(r, k, v, logw, u, s0)
+    got = wkv_ops.wkv_bwd(r, k, v, logw, u, s0, dy, ds, ckpt=ck)
+    torch.cuda.synchronize()
+    want = wkv_bwd_ref(r, k, v, logw, u, s0, dy, ds)
+    _wkv_bwd_check(got, want, ("train layer", with_state))
+
+
+def test_gpu_wkv_bwd_kernels_fit():
+    """The backward kernels launch as built: at N 64 the chunk kernel's
+    cluster is ``BWD_CLUSTER[64]`` CTAs and the card holds at least 16
+    resident warps of it an SM; every head size's kernels are resident at
+    least once an SM."""
+    _cuda()
+    for N in wkv_ops.HEAD_SIZES:
+        occ = wkv_ops.bwd_occupancy(N)
+        assert occ["cluster"] == wkv_ops.BWD_CLUSTER[N], (N, occ)
+        assert occ["carry_ctas_per_sm"] >= 1 and \
+            occ["chunk_ctas_per_sm"] >= 1 and \
+            occ["max_active_clusters"] >= 1, (N, occ)
+    occ = wkv_ops.bwd_occupancy(64)
+    assert occ["chunk_ctas_per_sm"] * occ["chunk_threads"] // 32 >= 16, occ
 
 
 def test_gpu_wkv_saves_checkpoints():
@@ -1371,11 +1405,12 @@ def test_gpu_wkv_saves_checkpoints():
 
 
 def test_gpu_wkv_bwd_repeats_bit_for_bit():
-    """No atomics: the same backward twice gives the same bits, at
-    rwkv6-7b's head size (four column groups added in order) and at 32."""
+    """No atomics: the same backward twice gives the same bits, at every
+    head size (rwkv6-7b's 64: four ranks of a cluster added in order) at a
+    ragged T."""
     dev = _cuda()
     g = torch.Generator(device=dev).manual_seed(9)
-    for N in (64, 32):
+    for N in (64, 32, 16, 8):
         r, k, v, logw, u, s0, dy, ds = _wkv_bwd_case(g, dev, 2, 1000, 8, N,
                                                      None, True)
         _, _, ck = wkv_ops.wkv_fwd(r, k, v, logw, u, s0)

@@ -6,9 +6,12 @@ clip range of logw, against ``jax.vjp`` of the reference model's
 against autograd through the port's own ``wkv_ref``; ``WkvFn``'s glue with
 its two launches swapped for the plain versions by this file's
 monkeypatch; the checkpoints ``wkv_fwd`` gives; and a float64 model of the
-backward kernel's schedule (``k5_bwd_model.py``), which must give the exact
-gradient for every chunk length, ragged T and number of column groups,
-while its off-by-one mutants fail.
+backward kernels' schedule (``k5_bwd_model.py``: the chunk-boundary carry,
+then every chunk from its checkpoint and stored G_end, the column groups
+of a cluster summed in rank order), which must give the exact gradient for
+every chunk length, chunks per cluster, ragged T and number of column
+groups, and agree with ``jax.vjp`` of the reference, while its off-by-one
+mutants fail.
 
 Tolerances, each of a gradient's largest |want| (float32 sums in another
 order; the recurrences agree term by term): 1e-5 for dr, dk, dv, du and
@@ -27,7 +30,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from k5_bwd_model import (MUTANTS, Schedule, bwd_model,  # noqa: E402
-                          exact_grads)
+                          carry, exact_grads)
 from repro.kernels.rwkv_scan.ref import wkv_ref as jax_wkv_ref  # noqa: E402
 from repro.models.rwkv6 import wkv_chunked  # noqa: E402
 from repro_torch.kernels.rwkv_scan import ops as wkv_ops  # noqa: E402
@@ -274,22 +277,80 @@ def test_schedule_model_any_number_of_groups(n_groups):
         assert _model_err(args, Schedule(16, n_groups, 2, order)) <= 1e-10
 
 
-@pytest.mark.parametrize("N", sorted(wkv_ops.BWD_GROUPS))
+@pytest.mark.parametrize("per_cta", [1, 2, 3, 5])
+@pytest.mark.parametrize("T", [0, 1, 16, 17, 37, 80])
+def test_schedule_model_any_chunks_per_cluster(T, per_cta):
+    """A cluster walking ``per_cta`` chunks, each from its own stored G_end,
+    du added over them: ragged T and a last group of fewer chunks."""
+    args = _model_inputs(T + 50 * per_cta, 2, T, 2, 8)
+    assert _model_err(args, Schedule(16, 4, 2, (), per_cta)) <= 1e-10
+
+
+@pytest.mark.parametrize("T", [1, 16, 37])
+def test_schedule_model_carry_is_the_token_walk(T):
+    """The carry's matrix form, G before a chunk = diag(A) G_end +
+    (P r)^T Dy, against G walked token by token: G_end of every chunk and
+    the initial state's gradient."""
+    r, k, v, lw, u, s0, dy, ds = _model_inputs(T, 2, T, 2, 8)
+    sched = Schedule(4, 2, 2)
+    gend, ds0 = carry(r, lw, dy, ds, sched)
+    g, want = ds.copy(), {}
+    for t in reversed(range(T)):
+        if (t + 1) % sched.chunk == 0 or t == T - 1:
+            want[t // sched.chunk] = g.copy()
+        g = np.exp(lw[:, t])[..., None] * g + \
+            r[:, t, :, :, None] * dy[:, t, :, None, :]
+    assert sorted(want) == list(range(gend.shape[2]))
+    for p, a in want.items():
+        assert np.abs(gend[:, :, p] - a).max() <= 1e-12 * np.abs(a).max()
+    assert np.abs(ds0 - g).max() <= 1e-12 * np.abs(g).max()
+
+
+@pytest.mark.parametrize("logw", [-1e-4, -20.0, None])
+@pytest.mark.parametrize("T", [1, 17, 48])
+def test_schedule_model_matches_jax_vjp_of_oracle(T, logw):
+    """The kernels' schedule at rwkv6-7b's head size (``BWD_CLUSTER[64]``
+    ranks, ``BWD_CHUNKS_PER_CTA`` chunks a cluster) against ``jax.vjp`` of
+    the reference's exact ``lax.scan`` (zero initial state and final-state
+    cotangent), logw at both ends of the clip range and spread over it."""
+    N = 64
+    r, k, v, lw, u, _, dy, _ = _inputs(T + 3, 1, T, 1, N, logw)
+    _, vjp = jax.vjp(jax_wkv_ref, *(jnp.asarray(_heads(a))
+                                    for a in (r, k, v, lw)),
+                     jnp.asarray(u))
+    grads = vjp(jnp.asarray(_heads(dy)))
+    want = [_unheads(np.asarray(g), 1) for g in grads[:4]]
+    want.append(np.asarray(grads[4]))
+    zero = np.zeros((1, 1, N, N))
+    sched = Schedule(wkv_ops.CKPT_TOKENS, wkv_ops.BWD_CLUSTER[N], 2, (),
+                     wkv_ops.BWD_CHUNKS_PER_CTA)
+    got = bwd_model(*(a.astype(np.float64) for a in (r, k, v, lw, u)), zero,
+                    dy.astype(np.float64), zero, sched=sched)
+    _assert_grads(got[:5], want, TOL)
+
+
+@pytest.mark.parametrize("N", sorted(wkv_ops.BWD_CLUSTER))
 def test_schedule_model_at_the_kernels_schedules(N):
-    """The kernel's own schedule at each head size: ``CKPT_TOKENS`` between
-    checkpoints, ``BWD_GROUPS[N]`` column groups, and the forward's tokens
-    per update (1, 2, 4, 2 at N 8, 16, 32, 64)."""
+    """The kernels' own schedule at each head size: ``CKPT_TOKENS`` between
+    checkpoints, ``BWD_CLUSTER[N]`` column groups (a cluster's ranks),
+    ``BWD_CHUNKS_PER_CTA`` chunks a cluster, the forward's tokens per update
+    (1, 2, 4, 2 at N 8, 16, 32, 64), at B 2 and ragged T."""
     regroup = {8: 1, 16: 2, 32: 4, 64: 2}[N]
-    args = _model_inputs(N, 1, 37, 1, N)
-    sched = Schedule(wkv_ops.CKPT_TOKENS, wkv_ops.BWD_GROUPS[N], regroup)
-    assert _model_err(args, sched) <= 1e-10
+    sched = Schedule(wkv_ops.CKPT_TOKENS, wkv_ops.BWD_CLUSTER[N], regroup,
+                     (), wkv_ops.BWD_CHUNKS_PER_CTA)
+    for T in (37, 64):
+        args = _model_inputs(N + T, 2, T, 1, N)
+        assert _model_err(args, sched) <= 1e-10
 
 
 @pytest.mark.parametrize("mutant", MUTANTS)
 def test_schedule_model_mutants_fail(mutant):
     """Each planted off-by-one (a checkpoint one token late, G decayed
-    before the chunk's last token instead of after it, a column group left
-    out of the sum, du of one batch only) misses the exact gradient."""
+    before the chunk's last token instead of after it, a rank's partial
+    left out of the cluster sum, du of one batch only, G_end stored one
+    chunk late, D_chunk applied on the wrong side of the chunk's update, a
+    rank's slice of rows never written, the ragged last chunk's du added
+    twice) misses the exact gradient at ragged T (37 tokens, 3 chunks)."""
     args = _model_inputs(11, 2, 37, 2, 8)
     sched = Schedule(16, 4, 2)
     assert _model_err(args, sched) <= 1e-10

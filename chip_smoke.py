@@ -263,11 +263,25 @@ failure raises and the script exits non-zero:
                again; K5's device ms a step by kernel (the backward's
                exp(logw), carry, chunk and du kernels apart).
 
+  10. dryrun — ``launch/dryrun.py`` on fake tensors, no GPU work: phase
+               9's three cells (their tokens, cut, optimizers and remat)
+               on one rank, the card's program (K4 and K5 through their
+               dry-run ops): the predicted peak memory against phase 9's
+               measured ``peak_mem_gb`` (within ``DRY_RUN_PEAK_TOL``
+               either way, else the phase fails), the predicted FLOPs
+               against phase 9's model-plus-remat FLOPs, the roofline
+               terms and the seconds the dry run took; then llama3.2-3b's
+               train_4k cell at full width on the 16 x 16 ``cuda`` mesh
+               over the fake process group: its peak per rank,
+               ``fits_80gb`` and collectives by kind, which must include
+               the backward's (the gradients').
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (K1-K5, K4's backward at llama's and recurrentgemma's layers and K5's at
 rwkv6-7b's), one ``{"server": ...}`` line, one
 ``{"train": ...}`` line, one ``{"llm": ...}`` line, one ``{"scale_out":
-...}`` line, one ``{"lm_train": ...}`` line, and as the last line
+...}`` line, one ``{"lm_train": ...}`` line, one ``{"dryrun": ...}`` line,
+and as the last line
 ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels DIR`` it
 imports the port from DIR (another checkout's ``src``, to time
 two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
@@ -296,10 +310,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-HBM_BYTES_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+# the H100's rates, from repro_torch/launch/roofline.py (``load_rates``,
+# called by main once the checkout is found): HBM bytes/s, dense bf16
+# tensor-core and float32 FLOP/s
+HBM_BYTES_S = BF16_OPS_S = F32_OPS_S = None
 PCIE_BYTES_S = 64e9       # PCIe Gen5 x16, one direction (PCI-SIG)
-BF16_OPS_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
-F32_OPS_S = 67e12         # H100 SXM float32 outside the tensor cores
 CFG = dict(model="sage", hidden=256, fanouts=(10, 5), request_batch_size=64,
            max_batch_requests=8, mode="helios", device_cache_frac=0.05,
            host_cache_frac=0.10, chaos=None, seed=0)
@@ -346,6 +361,9 @@ LM_TRAIN_FAMILIES = ("llama3.2-3b", "qwen2-moe-a2.7b", "recurrentgemma-2b",
 # (AdamW's float32 moments do not fit beside its 7.57 B parameters); like
 # AdamW's, its first steps move every entry by about the learning rate
 LM_TRAIN_RWKV, LM_TRAIN_RWKV_COUNTED = "rwkv6-7b", 2
+# phase 10 (dryrun): the predicted peak memory of phase 9's cells within
+# this share of the measured, either way
+DRY_RUN_PEAK_TOL = 0.10
 # K4's forward on seeded bf16 inputs with ``--lm-kernels`` (the same inputs
 # for any tree): (label, B, S, T, H, K, hd, causal, window), the prefill
 # layer shapes of recurrentgemma-2b (MQA, window 2048) and llama3.2-3b
@@ -3090,6 +3108,97 @@ def serve(srv, workload):
     return stats, [f.result() for f in futs]
 
 
+def load_rates() -> None:
+    """Set ``HBM_BYTES_S``, ``BF16_OPS_S`` and ``F32_OPS_S`` from this
+    checkout's ``repro_torch/launch/roofline.py`` (loaded by path, so
+    ``--gnn-kernels``/``--lm-kernels`` still import the other tree's
+    package)."""
+    import importlib.util
+    global HBM_BYTES_S, BF16_OPS_S, F32_OPS_S
+    path = os.path.join(SRC, "repro_torch", "launch", "roofline.py")
+    spec = importlib.util.spec_from_file_location("_smoke_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    HBM_BYTES_S, BF16_OPS_S, F32_OPS_S = (mod.HBM_BW, mod.PEAK_FLOPS,
+                                          mod.F32_FLOPS)
+
+
+def phase_dryrun(runs, smi):
+    """Phase 10 (see the module docstring): the dry run of phase 9's three
+    cells on one rank against their measured peak memory and FLOPs, then
+    llama3.2-3b's train_4k cell on the 16 x 16 mesh.  ``runs``: phase 9's
+    reports.  Returns the ``dryrun`` report."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.train.optim import adafactor, adamw, warmup_cosine
+    t_phase = time.perf_counter()
+    cells = []
+    for run in runs:
+        arch = run["config"]
+        cfg = dataclasses.replace(get_config(arch),
+                                  train_microbatches=LM_TRAIN_N_MB)
+        shape = ShapeSpec("train_4k", LM_TRAIN_SEQ,
+                          LM_TRAIN_MB * LM_TRAIN_N_MB, "train")
+        # phase 9's optimizers: Adafactor for rwkv, AdamW for the rest
+        opt = (adafactor if cfg.block == "rwkv" else adamw)(
+            warmup_cosine(*LM_TRAIN_LR))
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(arch, "train_4k", make_local_mesh(1, 1),
+                              verbose=False, cfg=cfg, shape=shape,
+                              optimizer=opt)
+        dry_s = time.perf_counter() - t0
+        if row["status"] != "ok":
+            raise AssertionError(f"dryrun {arch}: {row}")
+        measured = run["model_flop_per_step"] + run["remat_flop_per_step"]
+        cell = {
+            "config": arch, "optimizer": run["optimizer"],
+            "predicted_peak_gb": row["peak_mem_gb_per_chip"],
+            "measured_peak_gb": run["peak_mem_gb"],
+            "peak_ratio": row["peak_mem_gb_per_chip"] / run["peak_mem_gb"],
+            "held_at_start_gb": row["start_gb_per_chip"],
+            "predicted_flops": row["flops_per_chip"],
+            "phase9_model_plus_remat_flops": measured,
+            "flops_ratio": row["flops_per_chip"] / measured,
+            "flops_by_op": row["flops_by_op"],
+            "hbm_gbytes": row["gbytes"], "ops": row["ops_per_chip"],
+            "t_compute_ms": row["t_compute_ms"],
+            "t_memory_ms": row["t_memory_ms"],
+            "t_memory_floor_ms": row["t_memory_floor_ms"],
+            "t_collective_ms": row["t_collective_ms"],
+            "bottleneck": row["bottleneck"], "fits_80gb": row["fits_80gb"],
+            "measured_ms_per_step": run["ms_per_step"],
+            "dry_run_s": dry_s, "card": smi}
+        log(f"[dryrun] {arch}: {cell}")
+        cells.append(cell)
+        if abs(cell["peak_ratio"] - 1) > DRY_RUN_PEAK_TOL:
+            raise AssertionError(
+                f"dryrun {arch}: predicted peak {cell['predicted_peak_gb']} "
+                f"GB against the measured {cell['measured_peak_gb']} GB, "
+                f"beyond {DRY_RUN_PEAK_TOL:.0%}")
+    # llama3.2-3b's train_4k cell at full width on the production mesh
+    t0 = time.perf_counter()
+    row = dryrun.run_cell(LM_TRAIN_ARCH, "train_4k", make_production_mesh(),
+                          verbose=False)
+    dry_s = time.perf_counter() - t0
+    dist.destroy_process_group()
+    if row["status"] != "ok" or not row["collectives_in_backward"]:
+        raise AssertionError(f"dryrun {LM_TRAIN_ARCH} on 16x16: no gradient "
+                             f"collectives, or failed: {row}")
+    mesh = {key: row[key] for key in (
+        "cell", "chips", "peak_mem_gb_per_chip", "start_gb_per_chip",
+        "fits_80gb", "collectives", "collectives_in_backward",
+        "collective_gb_by_kind", "flops_per_chip", "gflops", "gbytes",
+        "t_compute_ms", "t_memory_ms", "t_memory_floor_ms",
+        "t_collective_ms", "bottleneck", "mfu_bound", "ops_per_chip")}
+    mesh.update(dry_run_s=dry_s, card=smi)
+    log(f"[dryrun] {LM_TRAIN_ARCH} on 16x16: {mesh}")
+    return {"cells": cells, "mesh_16x16": mesh,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main(argv):
     import torch
     mode = argv[0] if argv[:1] in (["--gnn-kernels"], ["--lm-kernels"]) \
@@ -3102,6 +3211,7 @@ def main(argv):
     if not os.path.isdir(os.path.join(pkg, "repro_torch")):
         log(f"chip_smoke: {pkg}/repro_torch not found; run from a checkout")
         return 3
+    load_rates()
     sys.path.insert(0, pkg)
     from repro_torch.gnn.graph import make_dataset
     from repro_torch.kernels import build
@@ -3434,6 +3544,10 @@ def main(argv):
     kernels += k4_bwd + [k5_bwd]
     log(f"[lm_train] phase in {lm_train['phase_s']:.1f} s")
 
+    # --- 10. the dry run of phase 9's cells, then on the 16 x 16 mesh ------
+    dry = phase_dryrun((lm_train, lm_train["hybrid"], lm_train["ssm"]), smi)
+    log(f"[dryrun] phase in {dry['phase_s']:.1f} s")
+
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"server": server, "card": smi}))
@@ -3441,6 +3555,7 @@ def main(argv):
     print(json.dumps({"llm": llm, "card": smi}))
     print(json.dumps({"scale_out": scale_out, "card": smi}))
     print(json.dumps({"lm_train": lm_train, "card": smi}))
+    print(json.dumps({"dryrun": dry, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

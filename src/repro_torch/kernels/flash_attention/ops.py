@@ -18,7 +18,9 @@ t > p - window) and skip the key tiles that lie wholly below it.
 Each launch counts in ``launches``, in its route's ``route_launches`` and
 by use in ``launches_by_use``.
 On CPU tensors it runs the plain version (``ref.py``); anything else
-raises, and so does a CUDA tensor in a form neither kernel takes.  Both
+raises, and so does a CUDA tensor in a form neither kernel takes.  A fake
+tensor (the dry run, ``launch/dryrun.py``) takes ``kernels/dry_run.py``'s
+shape-only ops, and only a fake tensor does.  Both
 kernels read q, k and v in the model's own ``(B, S, H, hd)`` layout
 through their strides (no copy); only the head dimension must be
 contiguous.
@@ -44,7 +46,9 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.kernels import build, dry_run
 from repro_torch.kernels.flash_attention.ref import attention_ref, lse_ref
 
 ROUTES = ("tensor_cores", "cuda_cores")
@@ -202,6 +206,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: window {window} < 0")
     if q.device.type == k.device.type == v.device.type == "cpu":
         return attention_ref(q, k, v, causal, q_offset, window)
+    if is_fake(q):
+        return dry_run.flash_attention(q, k, v, causal, q_offset, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, q_offset, window)
@@ -221,6 +227,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == k.device.type == v.device.type == "cpu":
         return (attention_ref(q, k, v, causal, q_offset, window),
                 lse_ref(q, k, causal, q_offset, window))
+    if is_fake(q):
+        return dry_run.flash_attention_fwd(q, k, v, causal, q_offset, window)
     return _forward(q, k, v, causal, q_offset, window, with_lse=True)
 
 
@@ -311,6 +319,9 @@ def flash_attention_bwd(q, k, v, o, do, causal: bool = True,
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = attention_ref(*qkv, causal, q_offset, window)
             return torch.autograd.grad(out, qkv, do)
+    if is_fake(q):
+        return dry_run.flash_attention_bwd(q, k, v, o, do, causal, q_offset,
+                                           window, lse)
     _check(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]

@@ -6,7 +6,9 @@ On CUDA tensors ``wkv`` launches ``csrc/rwkv_scan.cu`` (one CTA per
 counts the launch in ``launches``; on CPU tensors it runs the plain
 version (``ref.py``, the exact sequential recurrence, with autograd through
 it); anything else raises, and so does a CUDA tensor in a form the kernels
-do not take, before any launch.
+do not take, before any launch.  A fake tensor (the dry run,
+``launch/dryrun.py``) takes ``kernels/dry_run.py``'s shape-only ops, and
+only a fake tensor does.
 
 Under grad on the card (an input that requires grad) ``wkv`` runs
 ``WkvFn``: the forward kernel also saves the state before every
@@ -26,7 +28,9 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.kernels import build, dry_run
 from repro_torch.kernels.rwkv_scan.ref import (checkpoints_ref, wkv_bwd_ref,
                                                wkv_ref)
 
@@ -130,6 +134,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ts = (r, k, v, logw, u) if state is None else (r, k, v, logw, u, state)
     if all(t.device.type == "cpu" for t in ts):
         return wkv_ref(r, k, v, logw, u, state)
+    if is_fake(r):
+        return dry_run.wkv(r, k, v, logw, u, state)
     _check(r, k, v, logw, u, state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         return WkvFn.apply(r, k, v, logw, u, state)
@@ -147,6 +153,8 @@ def wkv_fwd(r, k, v, logw, u, state=None):
     if all(t.device.type == "cpu" for t in ts):
         return (*wkv_ref(r, k, v, logw, u, state),
                 checkpoints_ref(k, v, logw, state, CKPT_TOKENS))
+    if is_fake(r):
+        return dry_run.wkv_fwd(r, k, v, logw, u, state)
     _check(r, k, v, logw, u, state)
     return _forward(r, k, v, logw, u, state, True)
 
@@ -162,6 +170,8 @@ def wkv_bwd(r, k, v, logw, u, state, dy, dstate=None, *, ckpt=None):
         t for t in (state, dstate) if t is not None)
     if all(t.device.type == "cpu" for t in ts):
         return wkv_bwd_ref(r, k, v, logw, u, state, dy, dstate)
+    if is_fake(r):
+        return dry_run.wkv_bwd(r, k, v, logw, u, state, dy, dstate, ckpt)
     _check(r, k, v, logw, u, state)
     if ckpt is None:
         raise ValueError("wkv_bwd: needs the forward's checkpoints on the "

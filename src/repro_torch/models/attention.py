@@ -11,9 +11,11 @@ plain version of the reference's chunked attention.  Single-token decode
 (``decode_attend``) is an einsum in the reference, not a kernel, and
 stays plain PyTorch on both devices.
 
-The reference's ``annotate`` sharding hints are dropped: on one card they
-are layout hints with no effect on values (the multi-device slice brings
-``distributed/sharding.py``).  Unlike the reference's pure functions,
+The reference's ``annotate`` sharding hints are kept
+(``distributed/sharding.py``): on one card they return their input after
+one check; on a mesh they place DTensors, and ``split_heads`` gathers a
+flat head dim whose head count the mesh axis does not divide (DTensor
+cannot reshape an uneven shard).  Unlike the reference's pure functions,
 ``cache_update`` writes the new keys and values into the cache in place, so
 decode never copies the multi-GB cache.
 """
@@ -24,6 +26,7 @@ import math
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import merged_heads, split_heads
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init_, param, rmsnorm
 
@@ -76,9 +79,9 @@ def project_qkv(x, p: Attention, *, n_heads, n_kv, head_dim, positions=None,
     v = x @ p.wv
     if hasattr(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv, head_dim)
-    v = v.reshape(B, S, n_kv, head_dim)
+    q = split_heads(q, n_heads, head_dim, "heads", n_kv)
+    k = split_heads(k, n_kv, head_dim, "kv_heads")
+    v = split_heads(v, n_kv, head_dim, "kv_heads")
     if qk_norm:
         q = rmsnorm(q, p.q_norm)
         k = rmsnorm(k, p.k_norm)
@@ -198,6 +201,7 @@ def attention_block(x, p: Attention, cfg, *, positions=None, causal=True,
         positions=positions, rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
     o = attend(q, k, v, causal=causal, window=window, q_chunk=q_chunk,
                probs_dtype=getattr(torch, cfg.attn_probs_dtype))
+    o = merged_heads(o, cfg.n_heads, cfg.n_kv_heads)
     return output_proj(o, p), (k, v)
 
 

@@ -28,6 +28,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed.sharding import annotate
 from repro_torch.models.attention import (Attention, attend, attention_block,
                                           attention_decode_block,
                                           decode_attend, output_proj)
@@ -138,7 +139,8 @@ def _enc_layer(x, lp: EncDecLayer, cfg: ModelConfig):
     a, _ = attention_block(apply_norm(x, lp.ln1, cfg.norm), lp.attn, cfg,
                            causal=False)
     x = x + a
-    return x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act)
+    return annotate(x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp,
+                            cfg.act), "batch", None, None)
 
 
 def _dec_layer(x, lp: EncDecLayer, cfg: ModelConfig, enc_out):
@@ -147,7 +149,8 @@ def _dec_layer(x, lp: EncDecLayer, cfg: ModelConfig, enc_out):
                             causal=True)
     x = x + a
     x = x + _xattn(apply_norm(x, lp.ln_x, cfg.norm), lp.xattn, cfg, enc_out)
-    return x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act), kv
+    return annotate(x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp,
+                            cfg.act), "batch", None, None), kv
 
 
 def encode(params: EncDec, cfg: ModelConfig, frames):
@@ -155,6 +158,7 @@ def encode(params: EncDec, cfg: ModelConfig, frames):
     Each layer is checkpointed under autograd with ``cfg.remat``."""
     x = frames + sinusoid(frames.shape[1], cfg.d_model, frames.dtype,
                           frames.device)[None]
+    x = annotate(x, "batch", None, None)
     for lp in params.enc.blocks:
         x = remat(cfg, _enc_layer, x, lp, cfg)
     return apply_norm(x, params.enc.final_norm, cfg.norm)

@@ -27,9 +27,12 @@ Prefill attention runs the K4 kernel on the card (windowed on the hybrid)
 and RWKV's WKV scan the K5 kernel; decode, the MoE dispatch and the RG-LRU
 scan are plain PyTorch, as the reference leaves them to XLA.  The decode
 caches are updated in place.  ``forward`` is also the train step's trunk:
-under autograd K4 runs with its backward kernel (K5 has none yet and
-refuses), and with ``cfg.remat`` each layer (a hybrid's repeat group) is
-checkpointed, as the reference's ``jax.checkpoint``.
+under autograd K4 and K5 run with their backward kernels, and with
+``cfg.remat`` each layer (a hybrid's repeat group) is checkpointed, as the
+reference's ``jax.checkpoint``.  The residual stream, embeddings and
+logits are annotated with logical axes where the reference annotates them
+(``distributed/sharding.py``: no-ops without a mesh); on a mesh the
+vocab-sharded embedding is read by ``take_rows``.
 
 TF32 is off for float32 products and convolutions on the card (set here,
 for the whole process), so float32 logits match the CPU within float32
@@ -43,6 +46,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed.sharding import annotate, take_rows
 from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models.attention import (Attention, attention_block,
                                           attention_decode_block)
@@ -296,12 +300,16 @@ def _ffn(h, lp, cfg: ModelConfig):
 
 def _attn_layer_fwd(x, lp: AttnLayer, cfg: ModelConfig, q_chunk: int):
     """One transformer layer over (B, S, D); returns (x', (k, v), aux)."""
+    # sequence-parallel TP: the residual stream sharded over `model` on the
+    # sequence dim between blocks
+    seq_ax = "seq_sp" if cfg.seq_parallel else None
+    x = annotate(x, "batch", seq_ax, None)
     h = apply_norm(x, lp.ln1, cfg.norm)
     h, kv = attention_block(h, lp.attn, cfg, window=cfg.window,
                             q_chunk=q_chunk)
-    x = x + h
+    x = annotate(x + h, "batch", seq_ax, None)
     h, aux = _ffn(apply_norm(x, lp.ln2, cfg.norm), lp, cfg)
-    return x + h, kv, aux
+    return annotate(x + h, "batch", seq_ax, None), kv, aux
 
 
 def _rec_layer_fwd(x, lp: RecLayer, cfg: ModelConfig):
@@ -309,7 +317,8 @@ def _rec_layer_fwd(x, lp: RecLayer, cfg: ModelConfig):
     (x', {"h", "conv"}) with the state after the last token."""
     h, st = rglru.recurrent_block(apply_norm(x, lp.ln1, cfg.norm), lp.rec)
     x = x + h
-    return x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp, cfg.act), st
+    return annotate(x + mlp(apply_norm(x, lp.ln2, cfg.norm), lp.mlp,
+                            cfg.act), "batch", None, None), st
 
 
 def _rwkv_layer_fwd(x, lp: RWKVLayer, cfg: ModelConfig):
@@ -324,7 +333,8 @@ def _rwkv_layer_fwd(x, lp: RWKVLayer, cfg: ModelConfig):
     x = x + h
     h = apply_norm(x, lp.ln2, cfg.norm)
     h, cmx = rwkv6.channel_mix(h, lp.cm, z)
-    return x + h, {"tm_x": tmx, "wkv": wkv, "cm_x": cmx}
+    return (annotate(x + h, "batch", None, None),
+            {"tm_x": tmx, "wkv": wkv, "cm_x": cmx})
 
 
 def _layer_fwd(x, name: str, lp, cfg: ModelConfig, q_chunk: int):
@@ -384,11 +394,11 @@ def forward(params: LM, cfg: ModelConfig, x, q_chunk: int = 512):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params.embed[tokens]
+    return annotate(take_rows(params.embed, tokens), "batch", None, None)
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):
-    return hidden @ params.unembed
+    return annotate(hidden @ params.unembed, "batch", None, "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +538,9 @@ def decode_one(params: LM, cfg: ModelConfig, x, cache, pos: int):
     for group, name, i, lp in _layers(params, cfg):
         c = cache if group is None else cache[group][name]
         c_l = {k: a[i] for k, a in c.items()}               # views: in place
+        if "k" in c_l:
+            c_l = {k: annotate(a, "batch", "kv_seq", None, None)
+                   for k, a in c_l.items()}
         if name.endswith("rec"):
             x = _rec_layer_decode(x, lp, cfg, c_l)
         else:

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import annotate
 from repro_torch.models.layers import MLP, dense_init_, gelu, mlp, param
 
 
@@ -178,7 +179,7 @@ def _moe_block(x, p: MoE, mcfg: MoEConfig, act: str = "swiglu"):
     if S % Sg:
         Sg = S
     G = B * (S // Sg)
-    xg = x.reshape(G, Sg, D)
+    xg = annotate(x.reshape(G, Sg, D), "batch", None, None)
 
     logits = xg.float() @ p.router                          # (G, Sg, E)
     topw, topi, aux, z = router_weights(logits, mcfg, mcfg.n_experts)
@@ -196,9 +197,13 @@ def _moe_block(x, p: MoE, mcfg: MoEConfig, act: str = "swiglu"):
     pos_oh = (pos[..., None] == slots).float() * keep[..., None]
     dispatch = torch.einsum("gske,gskc->gsec", mask, pos_oh)
     combine = torch.einsum("gske,gskc,gsk->gsec", mask, pos_oh, w)
-    dispatch = dispatch.to(x.dtype)
+    dispatch = annotate(dispatch.to(x.dtype), "batch", None, "experts", None)
+    combine = annotate(combine, "batch", None, "experts", None)
 
+    # dispatch -> (E, G, C, D): all-to-all between data-sharded G and
+    # model-sharded E on a mesh
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch, xg)
+    expert_in = annotate(expert_in, "experts", "batch", None, None)
     we = p.experts
     if act in ("swiglu", "geglu"):
         h = _expert_act(act)(torch.einsum("egcd,edf->egcf", expert_in,
@@ -207,8 +212,9 @@ def _moe_block(x, p: MoE, mcfg: MoEConfig, act: str = "swiglu"):
     else:
         h = gelu(torch.einsum("egcd,edf->egcf", expert_in, we.w_up))
     expert_out = torch.einsum("egcf,efd->egcd", h, we.w_down)
-    y = torch.einsum("egcd,gsec->gsd", expert_out,
-                     combine.to(x.dtype)).reshape(B, S, D)
+    expert_out = annotate(expert_out, "experts", "batch", None, None)
+    y = torch.einsum("egcd,gsec->gsd", expert_out, combine.to(x.dtype))
+    y = annotate(y, "batch", None, None).reshape(B, S, D)
 
     if hasattr(p, "shared"):
         y = y + mlp(x, p.shared, act)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import annotate
 from repro_torch.models.layers import dense_init_, gelu, param
 
 RG_C = 8.0
@@ -113,7 +114,7 @@ def recurrent_block(x, p: RecurrentBlock, state=None):
     state)."""
     B = x.shape[0]
     gate = gelu(x @ p.w_gate_in)
-    h = (x @ p.w_in).float()
+    h = annotate((x @ p.w_in).float(), "batch", None, "rnn")
     h0 = (state["h"] if state is not None else
           torch.zeros((B, h.shape[-1]), dtype=torch.float32,
                       device=x.device))

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import split_heads
 from repro_torch.kernels.rwkv_scan.ops import wkv
 from repro_torch.models.layers import dense_init_, param
 
@@ -152,8 +153,8 @@ def time_mix(x, p: TimeMix, head_size, x_prev, state):
     H = D // head_size
     xx = _shift(x, x_prev)
     x_r, x_w, x_k, x_v, x_g = ddlerp(x, xx, p)
-    r = (x_r @ p.w_r).float().reshape(B, T, H, head_size)
-    k = (x_k @ p.w_k).float().reshape(B, T, H, head_size)
+    r = split_heads((x_r @ p.w_r).float(), H, head_size, "rnn")
+    k = split_heads((x_k @ p.w_k).float(), H, head_size, "rnn")
     v = (x_v @ p.w_v).float().reshape(B, T, H, head_size)
     g = F.silu((x_g @ p.w_g).float())
     logw = _decay(x_w, p).reshape(B, T, H, head_size)

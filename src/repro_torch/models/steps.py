@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.distributed.sharding import take_last
 from repro_torch.models import encdec, lm
 from repro_torch.train.optim import global_norm
 
@@ -41,10 +42,11 @@ def fused_xent(logits, labels):
     """Mean cross entropy and mean squared log-normaliser (the z loss) of
     (..., V) logits against integer labels, in float32.  The gold logit is
     picked by ``gather``, the reference's iota-compare-select: one entry
-    either way, so the same number."""
+    either way, so the same number (on a mesh, a masked local gather summed
+    over the vocab axis: ``sharding.take_last``)."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    gold = take_last(logits, labels)
     return torch.mean(lse - gold), torch.mean(torch.square(lse))
 
 
@@ -90,11 +92,10 @@ def make_train_step(cfg: ModelConfig, optimizer, q_chunk: int = 512,
         model = state["params"].requires_grad_(True)   # built frozen
         named = dict(model.named_parameters())
         params = list(named.values())
-        acc = {n: torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
+        acc = {n: torch.zeros_like(p, dtype=grad_dtype)
                for n, p in named.items()}
         n_mb = next(iter(batch.values())).shape[0]
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=params[0].device)
+        loss_sum = params[0].new_zeros((), dtype=torch.float32)
         for i in range(n_mb):
             loss, _ = compute_loss(model, cfg,
                                    {k: v[i] for k, v in batch.items()},

@@ -34,6 +34,7 @@ import math
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.tree import (Stacked, full, slices, tree_clone,
                                    tree_leaves, tree_map)
@@ -101,8 +102,11 @@ def _zeros_like_leaf(p, dtype):
 
 def _chunks(*ts):
     """Matching flat chunks of ``CHUNK`` elements of equally shaped
-    contiguous tensors (the tensors whole where one is not contiguous)."""
-    if not all(t.is_contiguous() for t in ts):
+    contiguous tensors (the tensors whole where one is not contiguous, or
+    is a ``DTensor``: a rank's shard cannot be flattened across the mesh,
+    and it is a fraction of the leaf)."""
+    if not all(t.is_contiguous() and not isinstance(t, DTensor)
+               for t in ts):
         yield ts
         return
     flat = [t.view(-1) for t in ts]

@@ -58,7 +58,10 @@ def test_port_sources_exist():
     assert os.path.exists(srcs[2]), "the port's serving example is missing"
     assert os.path.exists(srcs[3]), "the port's LM training example is missing"
     for mod in ("models/moe", "models/rglru", "models/encdec",
-                "models/frontends", "data/tokens", "launch/train"):
+                "models/frontends", "data/tokens", "launch/train",
+                "distributed/sharding", "launch/mesh", "launch/roofline",
+                "launch/op_cost", "launch/dryrun", "launch/hillclimb",
+                "kernels/dry_run"):
         assert os.path.join(PORT, f"{mod}.py") in srcs, mod
     assert len(srcs) > 20
 
@@ -276,3 +279,19 @@ def test_lm_train_entry_points_default_to_the_card():
     spec.loader.exec_module(example)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         example.main(["--steps", "1"])
+
+
+def test_dry_run_defaults_to_the_card():
+    """The dry run counts the card's program unless asked for the CPU's:
+    ``--device`` and ``run_cell`` default to cuda, and without a CUDA
+    build its cell fails rather than count the CPU program."""
+    import inspect
+
+    from repro_torch.launch import dryrun
+    assert inspect.signature(dryrun.run_cell).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(dryrun.count_step).parameters[
+        "device"].default == "cuda"
+    if not torch.cuda.is_available():
+        assert dryrun.main(["--arch", "llama3.2-3b", "--shape", "train_4k",
+                            "--mesh", "1x1", "--width", "reduced"]) == 1

@@ -3,7 +3,8 @@
 scale-out (a remote-tier cache, a dead peer, a serving fleet; K1-K3),
 out-of-core GNN training (K1, K2/K3 forward and backward), LM serving of
 every registered family, prefill then greedy decode (K4, K5), and the LM
-train step (K4 and K5, forward and backward) at full width.
+train step (K4 and K5, forward and backward) at full width, and the
+GNN trainer under injected IO faults, back-pressure and tracing (K1-K3).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
@@ -12,6 +13,7 @@ train step (K4 and K5, forward and backward) at full width.
                                                     # rows and phase 9 a
                                                     # (K4's and K5's rows),
                                                     # of another checkout
+    python3 chip_smoke.py --faults                  # phases 1 and 11 only
 
 Imports nothing of JAX and nothing of the reference package.  Phases; any
 failure raises and the script exits non-zero:
@@ -275,13 +277,48 @@ failure raises and the script exits non-zero:
                over the fake process group: its peak per rank,
                ``fits_80gb`` and collectives by kind, which must include
                the backward's (the gradients').
+  11. faults — the main path under injected faults, back-pressure and
+               tracing: a writable copy of the IG-shaped store made anew
+               under build/smoke_faults/ (removed at the end), the
+               trainer at its defaults but one batch in flight
+               (``FAULTS_TRAIN``), the K1-K3 counters zeroed before and
+               read after parts a-d:
+               a. a clean run and one under ``FAULTS_CHAOS``
+               (test_chaos.py:489's schedule), ``FAULTS_BATCHES`` each,
+               both traced: every batch's gathered rows bit-identical,
+               losses within 1e-4 relative (K3's vector REDs add in no
+               fixed order), CacheStats equal, retries and timeouts
+               above 0 under chaos and none without, ``ft.retry.r``
+               instants in a Chrome trace that passes
+               ``validate_trace``;
+               b. a stuck window on shard 2: a demand read gives up
+               (RetriesExhausted), the shard is degraded, and a prefetch
+               of 4,096 storage rows made hotter than every resident
+               skips exactly those on shard 2 and admits the rest, on the
+               card and on the CPU alike (skip count, result, both tiers);
+               c. 30 demand batches arriving at virtual time 0 past a
+               1e-9 s watermark: prefetch is throttled, a whole prefetch
+               is shed and counted, and a training-shaped demand gather
+               on the card returns the rows it returned before, the
+               store's;
+               d. trainable embeddings with the epoch flush torn
+               (``FAULTS_EMB_BATCHES``): SimulatedCrash surfaces, a copy
+               of the torn store replays its journal on the CPU and a new
+               trainer on the card replays it in its cache, both writing
+               the journal's rows exactly; then one more batch trains;
+               e. a fatal fault on stream 0's second read, the trainer's
+               defaults (two batches in flight): FatalIOError surfaces
+               within ``FAULTS_TIME_LIMIT_S``; no thread of the trainer
+               is left, nor (once collected) the trainer, its pinned host
+               tier or any gather's pinned stage or output; K1 on a fresh
+               cache's tables agrees with its plain version bit for bit.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (K1-K5, K4's backward at llama's and recurrentgemma's layers and K5's at
 rwkv6-7b's), one ``{"server": ...}`` line, one
 ``{"train": ...}`` line, one ``{"llm": ...}`` line, one ``{"scale_out":
 ...}`` line, one ``{"lm_train": ...}`` line, one ``{"dryrun": ...}`` line,
-and as the last line
+one ``{"faults": ...}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels DIR`` it
 imports the port from DIR (another checkout's ``src``, to time
 two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
@@ -291,7 +328,9 @@ forward on seeded inputs at recurrentgemma-2b's layer shape (window 2048)
 and llama3.2-3b's (``LM_KERNEL_SHAPES``), and phase 9 a (K4's backward
 rows, K5's backward row without a state and its forward saving
 checkpoints), to time two trees' K4 and K5 in one call, and a
-``{"lm_kernels_of": DIR, "kernels": [...]}`` line.  Without a CUDA device,
+``{"lm_kernels_of": DIR, "kernels": [...]}`` line.  With ``--faults`` it
+runs phase 1 (K1-K3 only) and phase 11 and prints the card, the
+``{"faults": ...}`` line and the last line.  Without a CUDA device,
 or outside a checkout of the repository, it prints no result and exits
 non-zero.
 """
@@ -460,6 +499,19 @@ K5_BWD_SHAPE = ("rwkv6-7b time-mix, train_4k", 1, 4096, 64, 64)
 # of dr, dk, dv, dlogw, du, dstate0, as (rtol, atol).  float32 on both
 # sides, the same recurrence in another summation order.
 K5_BWD_TOL = (1e-4, 1e-4)
+# phase 11 (faults): the trainer at its defaults but one batch in flight
+# (``prefetch_depth`` 1, where the clean and the faulted runs gather
+# alike), over a writable copy of the smoke store made anew under
+# FAULTS_ROOT; test_chaos.py:489's schedule.  The deadline is virtual (a
+# stuck attempt is charged it; no wall time passes) and above any shard
+# read's modelled time at these rows.
+FAULTS_ROOT = os.path.join(ROOT, "build", "smoke_faults")
+FAULTS_DEADLINE_S = 1.0
+FAULTS_TRAIN = dict(mode="helios", prefetch_depth=1, seed=0,
+                    io_deadline_s=FAULTS_DEADLINE_S)
+FAULTS_CHAOS = dict(seed=7, read_error_rate=0.02, stuck=((1, 3, 6),))
+FAULTS_BATCHES, FAULTS_EMB_BATCHES = 6, 3
+FAULTS_TIME_LIMIT_S = 120
 TRAIN_SMALL = dict(vertices=20_000, row_dim=128, batches=3,
                    mode="helios-nopipe", batch_size=256, fanouts=(10, 5),
                    hidden=64, train_embeddings=True, embedding_momentum=0.9,
@@ -3199,12 +3251,398 @@ def phase_dryrun(runs, smi):
             "phase_s": time.perf_counter() - t_phase}
 
 
+def faults_trainer_runs(torch, dev, g, store):
+    """Phase 11 a: the trainer at its defaults, ``prefetch_depth`` 1, a
+    clean run and one under ``FAULTS_CHAOS``, both traced.  Each batch's
+    gathered rows stay on the card (copies) for the comparison."""
+    from repro_torch.ft.chaos import ChaosSchedule
+    from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
+    from repro_torch.obs import trace
+    from repro_torch.obs.export import to_chrome_trace, validate_trace
+    runs = {}
+    for name, chaos in (("clean", None),
+                        ("chaos", ChaosSchedule(**FAULTS_CHAOS))):
+        rows = []
+        tracer = trace.install()
+        try:
+            t0 = time.perf_counter()
+            with OutOfCoreGNNTrainer(g, store, TrainerConfig(
+                    chaos=chaos, device=str(dev), **FAULTS_TRAIN)) as trn:
+                complete = trn.cache.complete_planned
+
+                def rec(pg, complete=complete, rows=rows):
+                    out = complete(pg)
+                    rows.append(out[:len(pg.ids)].clone())
+                    return out
+                trn.cache.complete_planned = rec
+                t1 = time.perf_counter()
+                out = trn.train(FAULTS_BATCHES)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t1
+                losses = [m["loss"] for m in trn.metrics_log]
+            wall = time.perf_counter() - t0
+        finally:
+            trace.uninstall()
+        doc = to_chrome_trace(tracer)
+        validate_trace(doc)
+        runs[name] = dict(
+            rows=rows, losses=losses, out=out,
+            wall_s=wall, wall_ms_per_batch=train_s * 1e3 / FAULTS_BATCHES,
+            spans=len(tracer.spans), trace_events=len(doc["traceEvents"]),
+            retry_instants=sum(e[0] == "ft.retry.r" for e in tracer.events),
+            coverage=out["obs"]["coverage"])
+    clean, chaos = runs["clean"], runs["chaos"]
+    if not len(clean["rows"]) == len(chaos["rows"]) == FAULTS_BATCHES:
+        raise AssertionError("the runs gathered other numbers of batches")
+    for i, (a, b) in enumerate(zip(clean["rows"], chaos["rows"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"batch {i}: the rows gathered under chaos "
+                                 "differ from the clean run's")
+    loss_err = max(abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(chaos["losses"], clean["losses"]))
+    io = chaos["out"]["io"]
+    if not (io["retries"] > 0 and io["timeouts"] > 0
+            and clean["out"]["io"]["retries"] == 0):
+        raise AssertionError(f"no retry under chaos, or one without: {io}")
+    if chaos["retry_instants"] < 1:
+        raise AssertionError("no ft.retry.r instant in the chaos run's trace")
+    if chaos["out"]["cache"] != clean["out"]["cache"]:
+        raise AssertionError("CacheStats differ between the clean and the "
+                             "chaos run")
+    if not loss_err <= 1e-4:
+        raise AssertionError(f"losses under chaos differ by {loss_err}")
+    return {"batches": FAULTS_BATCHES, "identical_rows": True,
+            "loss_max_rel_err": loss_err, "losses": chaos["losses"],
+            "retries": io["retries"], "timeouts": io["timeouts"],
+            "transient_errors": io["transient_errors"],
+            "virtual_backoff_s": io["virtual_backoff_s"],
+            **{f"{k}_{f}": runs[k][f] for k in runs
+               for f in ("wall_s", "wall_ms_per_batch", "spans",
+                         "trace_events", "retry_instants", "coverage")}}
+
+
+def faults_candidates(hot, n_cached, n=4096):
+    """Storage-resident ids for a prefetch: the ``n`` hottest rows the
+    placement left out of the tiers."""
+    import numpy as np
+    return np.argsort(-hot, kind="stable")[n_cached:n_cached + n]
+
+
+def faults_degraded(torch, dev, store, hot, tiers):
+    """Phase 11 b: a stuck window on shard 2 makes a demand read give up
+    (RetriesExhausted) and marks the shard degraded; a prefetch of
+    ``faults_candidates`` (made hotter than every resident) then skips
+    exactly the candidates on shard 2 and admits the rest (as many as the
+    host tier holds), on the card and on the CPU alike (the same skip
+    count, result and tiers)."""
+    from repro_torch.core.hetero_cache import HeteroCache
+    from repro_torch.core.iostack import AsyncIOEngine
+    from repro_torch.ft.chaos import (ChaosSchedule, RetriesExhausted,
+                                      RetryPolicy)
+    cand = faults_candidates(hot, sum(tiers))
+    got = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        eng = AsyncIOEngine(store, chaos=ChaosSchedule(
+            seed=0, stuck=((2, 0, 10 ** 9),)),
+            retry=RetryPolicy(deadline_s=FAULTS_DEADLINE_S, max_retries=3),
+            degrade_after=3)
+        # the policy keeps the array it is given: each cache its own copy
+        cache = HeteroCache(store, hot.copy(), *tiers, eng, device=where)
+        try:
+            shard2 = cand[eng.shard_of(cand) == 2]
+            try:
+                eng.submit(shard2[:64]).wait()
+                raised = False
+            except RetriesExhausted:
+                raised = True
+            cache.policy._scores[cand] = hot.max() + 1.0
+            res = cache.prefetch_rows(cand)
+            got[side] = dict(
+                raised=raised, degraded=[int(s) for s in
+                                         eng.degraded_shards()],
+                skipped=cache.stats.degraded_skipped_rows,
+                expected=len(shard2),
+                admitted=res.rows if res is not None else 0,
+                host_tier=cache.host_tier.clone(),
+                device_tier=cache.device_tier.cpu(),
+                degraded_events=eng.stats.degraded_events,
+                timeouts=eng.stats.timeouts)
+        finally:
+            cache.close()
+            eng.close()
+    card, cpu = got["card"], got["cpu"]
+    if not (card["raised"] and card["degraded"] == [2]
+            and card["skipped"] == card["expected"] > 0
+            and card["admitted"] == min(len(cand) - card["expected"],
+                                        tiers[1])):
+        shown = {k: v for k, v in card.items() if "tier" not in k}
+        raise AssertionError(f"degraded shard on the card: {shown}")
+    for k in card:
+        same = (torch.equal(card[k], cpu[k]) if "tier" in k
+                else card[k] == cpu[k])
+        if not same:
+            raise AssertionError(f"degraded shard: {k} differs between the "
+                                 f"card and the CPU")
+    return {k: v for k, v in card.items() if "tier" not in k} | {
+        "card_equals_cpu": True}
+
+
+def faults_throttled(torch, dev, store, hot, tiers, ids):
+    """Phase 11 c: a demand storm (30 batches of 1024 rows arriving at
+    virtual time 0 on a paused engine) past a 1e-9 s watermark throttles
+    prefetch; the cache then sheds a whole prefetch and counts its rows,
+    and a demand gather of ``ids`` on the card returns the rows it
+    returned before the storm, which are the store's."""
+    import numpy as np
+    from repro_torch.core.hetero_cache import HeteroCache
+    from repro_torch.core.iostack import AsyncIOEngine, StreamClass
+    eng = AsyncIOEngine(store, sched="wfq", qwait_high_s=1e-9, chaos=None)
+    cache = HeteroCache(store, hot, *tiers, eng, device=dev)
+    try:
+        before = cache.gather(ids).clone()
+        rng = np.random.default_rng(9)
+        eng.pause()
+        storm = [eng.submit(rng.integers(0, store.n_rows, 1024),
+                            v_submit=0.0) for _ in range(30)]
+        eng.resume()
+        for tk in storm:
+            tk.wait()
+        throttled = eng.throttled(StreamClass.PREFETCH)
+        cand = faults_candidates(hot, sum(tiers))
+        res = cache.prefetch_rows(cand)
+        after = cache.gather(ids)
+        same = torch.equal(after, before) and torch.equal(
+            after.cpu(), torch.from_numpy(store.read_rows(ids)))
+        out = dict(throttled=throttled, shed=res is None,
+                   throttled_skipped_rows=cache.stats.throttled_skipped_rows,
+                   throttle_engaged=eng.stats.throttle_engaged,
+                   demand_rows=len(ids), demand_unchanged=same)
+    finally:
+        cache.close()
+        eng.close()
+    if not (throttled and out["shed"] and same
+            and out["throttled_skipped_rows"] == len(cand) > 0):
+        raise AssertionError(f"throttled prefetch: {out}")
+    return out
+
+
+def faults_torn_flush(torch, dev, g, store):
+    """Phase 11 d: trainable embeddings, ``FAULTS_EMB_BATCHES`` batches,
+    with the epoch flush torn: when the trainer calls ``flush`` its write
+    on stream 0 is the stream's next service, which the schedule then
+    tears.  SimulatedCrash must surface; a copy of the torn store replays
+    its journal on the CPU, a new trainer on the card reopens the store
+    and replays it in its cache; both must write the journal's rows
+    exactly, and the card's trainer then trains one more batch."""
+    import numpy as np
+    from repro_torch.core.hetero_cache import HeteroCache
+    from repro_torch.core.iostack import FeatureStore
+    from repro_torch.core.writeback import FlushJournal
+    from repro_torch.ft.chaos import ChaosSchedule, SimulatedCrash
+    from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
+    sched = ChaosSchedule(seed=7)
+    cfg = dict(FAULTS_TRAIN, train_embeddings=True, device=str(dev))
+    crashed = False
+    t0 = time.perf_counter()
+    try:
+        with OutOfCoreGNNTrainer(g, store, TrainerConfig(chaos=sched,
+                                                         **cfg)) as trn:
+            flush = trn.cache.flush
+
+            def torn_flush(*a, **kw):
+                sched.torn_at = frozenset({(0, trn.io._chaos_seq[0])})
+                return flush(*a, **kw)
+            trn.cache.flush = torn_flush
+            trn.train(FAULTS_EMB_BATCHES)
+    except SimulatedCrash:
+        crashed = True
+    crash_s = time.perf_counter() - t0
+    pending = FlushJournal(store.path).pending()
+    if not crashed or pending is None or pending[0] != "ok":
+        raise AssertionError(f"torn epoch flush: crashed {crashed}, journal "
+                             f"{pending and pending[0]}")
+    ids, rows = pending[1].copy(), np.array(pending[2])
+
+    def reopen(path):
+        return FeatureStore(path, store.n_rows, store.row_dim,
+                            dtype=store.dtype, n_shards=store.n_shards,
+                            writable=True)
+    copy = os.path.join(FAULTS_ROOT, "torn_copy")
+    shutil.copytree(store.path, copy)
+    cs = reopen(copy)
+    c = HeteroCache(cs, None, 0, 0, device="cpu")
+    cpu_rec = c.journal_recovery
+    c.close()
+    cpu_ok = np.array_equal(cs.read_rows(ids), rows)
+    shutil.rmtree(copy, ignore_errors=True)
+    with OutOfCoreGNNTrainer(g, reopen(store.path),
+                             TrainerConfig(chaos=None, **cfg)) as trn:
+        card_rec = trn.cache.journal_recovery
+        card_ok = np.array_equal(trn.store.read_rows(ids), rows)
+        out = trn.train(1)
+        torch.cuda.synchronize()
+    report = {"crashed": crashed, "journal_rows": len(ids),
+              "journal_action_card": card_rec, "journal_action_cpu": cpu_rec,
+              "replayed_rows_equal_journal": card_ok and cpu_ok,
+              "loss_after_replay": out["loss_last"],
+              "crash_run_s": crash_s,
+              "journal_left": os.path.exists(os.path.join(
+                  store.path, "flush.journal"))}
+    if not (card_rec == cpu_rec == {"action": "replayed", "rows": len(ids)}
+            and card_ok and cpu_ok and not report["journal_left"]
+            and math.isfinite(out["loss_last"])):
+        raise AssertionError(f"journal replay: {report}")
+    return report
+
+
+def faults_fatal(torch, dev, g, store, hot, tiers, ids, l_ops, l_ref):
+    """Phase 11 e: a fatal fault on stream 0's second read surfaces from
+    ``train`` (the trainer's defaults, two batches in flight) within
+    ``FAULTS_TIME_LIMIT_S``, leaves no thread of the trainer running, and
+    once collected leaves nothing of it alive: the trainer, its pinned
+    host tier, every gather's pinned stage and its output on the card
+    (weak references; the host allocator's own counts lag its frees).
+    Then K1 on a fresh cache's tables on this card agrees with its plain
+    version bit for bit and its gather returns the store's rows (no CUDA
+    error or lock left behind)."""
+    import gc
+    import threading
+    import weakref
+    from repro_torch.core.hetero_cache import HeteroCache
+    from repro_torch.ft.chaos import ChaosSchedule, FatalIOError
+    from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
+    before = set(threading.enumerate())
+    box, held = {}, []
+
+    def body():
+        try:
+            with OutOfCoreGNNTrainer(g, store, TrainerConfig(
+                    chaos=ChaosSchedule(seed=0, fatal_at=((0, 1),)),
+                    mode="helios", seed=0, device=str(dev))) as trn:
+                submit = trn.cache.submit_planned
+
+                def submit_rec(ids, n_rows=None):
+                    # weak references: the trainer, its pinned host tier,
+                    # every gather's pinned stage and output on the card
+                    pg = submit(ids, n_rows)
+                    held.extend(weakref.ref(t) for t in (pg.stage, pg.out)
+                                if t is not None)
+                    return pg
+                held.extend((weakref.ref(trn),
+                             weakref.ref(trn.cache.host_tier)))
+                trn.cache.submit_planned = submit_rec
+                trn.train(4)
+        except BaseException as e:          # noqa: BLE001 - checked below
+            box["error"] = e
+    t0 = time.perf_counter()
+    th = threading.Thread(target=body, daemon=True)
+    th.start()
+    th.join(FAULTS_TIME_LIMIT_S)
+    raise_s = time.perf_counter() - t0
+    if th.is_alive():
+        raise AssertionError(f"a fatal demand fault did not surface from "
+                             f"train within {FAULTS_TIME_LIMIT_S} s")
+    err = box.pop("error", None)
+    kind = type(err).__name__
+    del err
+    gc.collect()
+    left = [t for t in threading.enumerate() if t not in before]
+    for t in left:
+        t.join(10.0)
+    left = [t.name for t in left if t.is_alive()]
+    alive = sum(r() is not None for r in held)
+    torch.cuda.synchronize()
+    cache = HeteroCache(store, hot, *tiers, device=dev)
+    try:
+        got = cache.gather(ids)
+        rows_ok = torch.equal(got.cpu(),
+                              torch.from_numpy(store.read_rows(ids)))
+        args = (torch.from_numpy(ids.astype("int32")).to(dev),
+                cache._loc_dev, cache._slot_dev)
+        k1 = l_ops.fused_cache_lookup(*args, cache.device_tier,
+                                      cache.host_tier)
+        torch.cuda.synchronize()
+        want = l_ref.fused_lookup_ref(*args, cache.device_tier,
+                                      cache.host_tier)
+        k1_ok = all(torch.equal(a, b) for a, b in zip(k1, want))
+    finally:
+        cache.close()
+    report = {"error": kind, "raised_in_s": raise_s, "threads_left": left,
+              "tracked_buffers": len(held), "buffers_alive": alive,
+              "gather_equals_store": rows_ok, "k1_equals_plain": k1_ok}
+    if not (kind == FatalIOError.__name__ and not left and rows_ok
+            and k1_ok and len(held) > 2 and alive == 0):
+        raise AssertionError(f"fatal fault: {report}")
+    return report
+
+
+def phase_faults(torch, dev, counters, l_ref, smi):
+    """Phase 11 (see the module docstring): the port's main path on the
+    card under injected faults, back-pressure and tracing.  Returns the
+    ``faults`` report."""
+    import numpy as np
+    from repro_torch.core.hetero_cache import tier_rows
+    from repro_torch.core.iostack import FeatureStore
+    from repro_torch.gnn.graph import make_dataset
+    from repro_torch.gnn.sampling import NeighborSampler, draw_unique
+    g_ops, s_ops, l_ops = counters
+    t_phase = time.perf_counter()
+    shutil.rmtree(FAULTS_ROOT, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        g, ro, _ = make_dataset("IG", FAULTS_ROOT, scale=1e-3)
+        store = FeatureStore(ro.path, ro.n_rows, ro.row_dim, dtype=ro.dtype,
+                             n_shards=ro.n_shards, writable=True)
+        store_s = time.perf_counter() - t0
+        hot = g.degrees().astype(np.float64)
+        tiers = tier_rows("helios", g.n_vertices, 0.05, 0.10)
+        mb = NeighborSampler(g, TRAIN_FANOUTS, 5).sample(draw_unique(
+            np.random.default_rng(5), g.n_vertices, TRAIN_BATCH))
+        ids = mb.nodes[:int(mb.node_mask.sum())]
+        for m in counters:
+            m.launches = 0
+        for m in (g_ops, s_ops):
+            m.launches_by_use.clear()
+        report = {"store_s": store_s}
+        for part, fn in (
+                ("chaos", lambda: faults_trainer_runs(torch, dev, g, store)),
+                ("degraded", lambda: faults_degraded(torch, dev, store, hot,
+                                                     tiers)),
+                ("throttled", lambda: faults_throttled(torch, dev, store,
+                                                       hot, tiers, ids)),
+                ("torn_flush", lambda: faults_torn_flush(torch, dev, g,
+                                                         store))):
+            t0 = time.perf_counter()
+            report[part] = fn()
+            report[part]["s"] = time.perf_counter() - t0
+            log(f"[faults] {part}: {report[part]}")
+        launches = {"K1": l_ops.launches, "K2": g_ops.launches,
+                    "K2_backward": backward_launches(g_ops),
+                    "K3": s_ops.launches,
+                    "K3_backward": backward_launches(s_ops)}
+        t0 = time.perf_counter()
+        report["fatal"] = faults_fatal(torch, dev, g, store, hot, tiers, ids,
+                                       l_ops, l_ref)
+        report["fatal"]["s"] = time.perf_counter() - t0
+        log(f"[faults] fatal: {report['fatal']}")
+    finally:
+        shutil.rmtree(FAULTS_ROOT, ignore_errors=True)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the path never ran under "
+                             f"faults: {launches}")
+    report.update(launches=launches, card=smi,
+                  phase_s=time.perf_counter() - t_phase)
+    return report
+
+
 def main(argv):
     import torch
-    mode = argv[0] if argv[:1] in (["--gnn-kernels"], ["--lm-kernels"]) \
-        else None
+    mode = argv[0] if argv[:1] in (["--gnn-kernels"], ["--lm-kernels"],
+                                   ["--faults"]) else None
     gnn_only, lm_only = mode == "--gnn-kernels", mode == "--lm-kernels"
-    pkg = os.path.abspath(argv[1]) if mode and len(argv) > 1 else SRC
+    faults_only = mode == "--faults"
+    pkg = os.path.abspath(argv[1]) if mode and len(argv) > 1 \
+        and not faults_only else SRC
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available; nothing was run")
         return 2
@@ -3241,8 +3679,9 @@ def main(argv):
     # --- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
     libs = build.build_all(("flash_attention", "flash_attention_bwd",
-                            "rwkv_scan", "rwkv_scan_bwd")
-                           if lm_only else build.KERNELS)
+                            "rwkv_scan", "rwkv_scan_bwd") if lm_only else
+                           ("cache_lookup", "gather", "segment_agg")
+                           if faults_only else build.KERNELS)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         if hasattr(build, "ptxas_report"):
@@ -3260,7 +3699,8 @@ def main(argv):
         log(f"[build] {name}: " + " | ".join(lines))
     # such a tree has no hd-256 tensor-core kernel to check either, and a
     # tree before K5's clusters (``--lm-kernels``) no carry or chunk kernel
-    for lib, kernel in NO_SPILL if hasattr(build, "ptxas_report") else ():
+    for lib, kernel in NO_SPILL if hasattr(build, "ptxas_report") \
+            and not faults_only else ():
         if lib == "rwkv_scan_bwd" and not hasattr(wkv_ops, "BWD_CLUSTER"):
             continue
         found = {n: r for n, r in build.ptxas_report(lib).items()
@@ -3285,6 +3725,15 @@ def main(argv):
         log(f"[lm_kernels] K4 and K5 rows of {pkg}: {rows}")
         print(smi)
         print(json.dumps({"lm_kernels_of": pkg, "kernels": rows}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if faults_only:     # phase 11 alone
+        faults = phase_faults(torch, dev, (g_ops, s_ops, l_ops), l_ref, smi)
+        print(smi)
+        print(json.dumps({"faults": faults, "card": smi}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
@@ -3548,6 +3997,10 @@ def main(argv):
     dry = phase_dryrun((lm_train, lm_train["hybrid"], lm_train["ssm"]), smi)
     log(f"[dryrun] phase in {dry['phase_s']:.1f} s")
 
+    # --- 11. the main path under faults, back-pressure and tracing ---------
+    faults = phase_faults(torch, dev, (g_ops, s_ops, l_ops), l_ref, smi)
+    log(f"[faults] phase in {faults['phase_s']:.1f} s")
+
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"server": server, "card": smi}))
@@ -3556,6 +4009,7 @@ def main(argv):
     print(json.dumps({"scale_out": scale_out, "card": smi}))
     print(json.dumps({"lm_train": lm_train, "card": smi}))
     print(json.dumps({"dryrun": dry, "card": smi}))
+    print(json.dumps({"faults": faults, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -334,6 +334,14 @@ class PendingGather:
         return max(self.storage_virt, self.remote_virt)
 
 
+def _numpy_rows(rows, dtype) -> np.ndarray:
+    """Rows given as numpy or as a tensor on any device (the reference
+    takes its device arrays alike), as host numpy of ``dtype``."""
+    if isinstance(rows, torch.Tensor):
+        rows = rows.detach().cpu().numpy()
+    return np.asarray(rows, dtype)
+
+
 def tier_rows(mode: str, n_vertices: int, device_frac: float,
               host_frac: float) -> tuple:
     """Per-mode cache tier sizing (shared by trainer and server):
@@ -788,7 +796,8 @@ class HeteroCache:
         (read-your-writes; the engine's per-shard FIFO makes this hold even
         while the write ticket is still in flight).  The ``writethrough``
         ablation also pushes every cached write to storage immediately.
-        Duplicate ids resolve last-writer-wins in batch order.
+        Duplicate ids resolve last-writer-wins in batch order.  ``rows``
+        may be numpy or a tensor on any device.
 
         With ``wait=False`` the storage ticket stays IN FLIGHT and a
         ``PendingWrite`` is returned — complete it with ``complete_write``
@@ -799,7 +808,7 @@ class HeteroCache:
             raise PermissionError("write_planned needs a writable "
                                   "FeatureStore (writable=True)")
         ids = np.asarray(ids)
-        rows = np.asarray(rows, self.store.dtype)
+        rows = _numpy_rows(rows, self.store.dtype)
         if rows.shape != (len(ids), self.store.row_dim):
             raise ValueError(f"rows shape {rows.shape} != "
                              f"({len(ids)}, {self.store.row_dim})")
@@ -896,7 +905,7 @@ class HeteroCache:
             raise PermissionError("apply_delta needs a writable "
                                   "FeatureStore (writable=True)")
         ids = np.asarray(ids)
-        delta = np.asarray(delta, self.store.dtype)
+        delta = _numpy_rows(delta, self.store.dtype)
         if delta.shape != (len(ids), self.store.row_dim):
             raise ValueError(f"delta shape {delta.shape} != "
                              f"({len(ids)}, {self.store.row_dim})")

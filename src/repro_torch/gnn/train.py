@@ -547,7 +547,18 @@ class OutOfCoreGNNTrainer:
             seeds = draw_unique(rng, self.g.n_vertices, cfg.batch_size)
             return {"seeds": seeds}
 
-        out = pipe.run(make_ctx, n_batches)
+        try:
+            out = pipe.run(make_ctx, n_batches)
+        except BaseException:
+            # a batch failed (an IO fault): the other batch in flight may
+            # have operators queued, or waiting on tickets.  Let the running
+            # ones finish and drop the queued ones while the engines still
+            # serve them; left to the caller's ``with``, which closes the
+            # engines, a pool thread would wait forever on a ticket no
+            # worker serves, and the process could not exit
+            for pool in pipe.pools.values():
+                pool.shutdown(wait=True, cancel_futures=True)
+            raise
         pipe.close()
         # land the last double-buffered prefetch ticket left in flight
         with self._pf_lock:
@@ -660,13 +671,20 @@ class OutOfCoreGNNTrainer:
         """Release the IO stack: cache first (closes nothing it doesn't
         own), then the engine this trainer created (joins its workers).
         The optimizer-state caches own their engines and close them
-        themselves."""
-        self.cache.close()
-        self.io.close()
-        if self.mom_cache is not None:
-            self.mom_cache.close()
-        if self.adam_cache is not None:
-            self.adam_cache.close()
+        themselves.  Each step runs even when an earlier one raised (a
+        cache settling a flush ticket that failed re-raises its fault), so
+        no engine's workers outlive the trainer; the first error is
+        raised after all of them."""
+        err = None
+        for c in (self.cache, self.io, self.mom_cache, self.adam_cache):
+            if c is None:
+                continue
+            try:
+                c.close()
+            except BaseException as e:      # noqa: BLE001 - re-raised below
+                err = err or e
+        if err is not None:
+            raise err
 
     def __enter__(self):
         return self

@@ -8,6 +8,7 @@ imports no JAX, so it runs where the port runs:
 """
 import dataclasses
 import math
+import os
 
 import numpy as np
 import pytest
@@ -385,6 +386,42 @@ def test_gpu_cache_migration_and_writes_match_cpu(tmp_path):
         for c in caches:
             c.close()
             c.io.close()
+
+
+def test_gpu_torn_flush_of_card_rows_replays(tmp_path):
+    """Rows written as a card tensor into a card cache's device and host
+    tiers, then a flush torn by the schedule: SimulatedCrash, and the torn
+    shards and the journal are the bytes a CPU cache given the same rows
+    as numpy leaves; a cache over the reopened store replays the barrier
+    and the store holds the rows."""
+    from repro_torch.core.iostack import SyncIOEngine
+    from repro_torch.ft.chaos import ChaosSchedule, SimulatedCrash
+    dev = _cuda()
+    kw = dict(n_rows=4096, row_dim=16, n_shards=4, rng_seed=0, writable=True)
+    ids = np.arange(0, 4096, 3)
+    rows = np.random.default_rng(4).normal(size=(len(ids), 16)).astype(
+        np.float32)
+    left = {}
+    for where in (dev, "cpu"):
+        st = FeatureStore(str(tmp_path / str(where)), create=True, **kw)
+        eng = SyncIOEngine(st, chaos=ChaosSchedule(
+            seed=0, torn_at=tuple((0, q) for q in range(64))))
+        c = HeteroCache(st, None, 512, 4096 - 512, eng, device=where)
+        c.write_planned(ids, torch.from_numpy(rows).to(dev)
+                        if where == dev else rows)
+        with pytest.raises(SimulatedCrash):
+            c.flush()
+        files = sorted(os.listdir(st.path))
+        left[str(where)] = [open(os.path.join(st.path, f), "rb").read()
+                            for f in files]
+        assert "flush.journal" in files
+    assert left[str(dev)] == left["cpu"]
+    kw.pop("rng_seed")
+    st = FeatureStore(str(tmp_path / str(dev)), **kw)
+    c = HeteroCache(st, None, 0, 64, device=dev)
+    assert c.journal_recovery == {"action": "replayed", "rows": len(ids)}
+    np.testing.assert_array_equal(st.read_rows(ids), rows)
+    c.close()
 
 
 def test_gpu_server_matches_cpu(store):

@@ -21,7 +21,9 @@ def _sources():
     out = [os.path.join(ROOT, "chip_smoke.py"),
            os.path.join(ROOT, "examples", "train_gnn_outofcore_torch.py"),
            os.path.join(ROOT, "examples", "serve_decode_torch.py"),
-           os.path.join(ROOT, "examples", "train_llm_tiered_torch.py")]
+           os.path.join(ROOT, "examples", "train_llm_tiered_torch.py"),
+           os.path.join(ROOT, "examples", "quickstart_torch.py"),
+           os.path.join(ROOT, "examples", "serve_gnn_torch.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -57,6 +59,8 @@ def test_port_sources_exist():
     assert os.path.exists(srcs[1]), "the port's trainer example is missing"
     assert os.path.exists(srcs[2]), "the port's serving example is missing"
     assert os.path.exists(srcs[3]), "the port's LM training example is missing"
+    assert os.path.exists(srcs[4]), "the port's quickstart is missing"
+    assert os.path.exists(srcs[5]), "the port's GNN serving example is missing"
     for mod in ("models/moe", "models/rglru", "models/encdec",
                 "models/frontends", "data/tokens", "launch/train",
                 "distributed/sharding", "launch/mesh", "launch/roofline",

@@ -272,11 +272,15 @@ failure raises and the script exits non-zero:
                measured ``peak_mem_gb`` (within ``DRY_RUN_PEAK_TOL``
                either way, else the phase fails), the predicted FLOPs
                against phase 9's model-plus-remat FLOPs, the roofline
-               terms and the seconds the dry run took; then llama3.2-3b's
-               train_4k cell at full width on the 16 x 16 ``cuda`` mesh
-               over the fake process group: its peak per rank,
+               terms and the seconds the dry run took, and the memory
+               term over phase 9's measured ms a step (reported, not
+               gated); then llama3.2-3b's train_4k cell at full width on
+               the 16 x 16 and the 2 x 16 x 16 ``cuda`` meshes over one
+               fake process group: each one's peak per rank,
                ``fits_80gb`` and collectives by kind, which must include
-               the backward's (the gradients').
+               the backward's (the gradients'), and the bytes a rank
+               holds at the start within ``DRY_RUN_START_TOL`` of each
+               other (parameters and optimizer state take no pod axis).
   11. faults — the main path under injected faults, back-pressure and
                tracing: a writable copy of the IG-shaped store made anew
                under build/smoke_faults/ (removed at the end), the
@@ -403,6 +407,9 @@ LM_TRAIN_RWKV, LM_TRAIN_RWKV_COUNTED = "rwkv6-7b", 2
 # phase 10 (dryrun): the predicted peak memory of phase 9's cells within
 # this share of the measured, either way
 DRY_RUN_PEAK_TOL = 0.10
+# phase 10: llama3.2-3b's train_4k start bytes a rank on 2 x 16 x 16
+# within this share of 16 x 16's (only the batch's shards differ)
+DRY_RUN_START_TOL = 0.01
 # K4's forward on seeded bf16 inputs with ``--lm-kernels`` (the same inputs
 # for any tree): (label, B, S, T, H, K, hd, causal, window), the prefill
 # layer shapes of recurrentgemma-2b (MQA, window 2048) and llama3.2-3b
@@ -3184,7 +3191,8 @@ def phase_dryrun(runs, smi):
     import torch.distributed as dist
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.launch.mesh import (fake_world, make_local_mesh,
+                                         make_production_mesh)
     from repro_torch.train.optim import adafactor, adamw, warmup_cosine
     t_phase = time.perf_counter()
     cells = []
@@ -3222,33 +3230,57 @@ def phase_dryrun(runs, smi):
             "t_collective_ms": row["t_collective_ms"],
             "bottleneck": row["bottleneck"], "fits_80gb": row["fits_80gb"],
             "measured_ms_per_step": run["ms_per_step"],
+            # every eager op reads its operands and writes its outputs in
+            # HBM, so a ratio well above 1 means the bytes are miscounted
+            "t_memory_over_measured": row["t_memory_ms"] / run["ms_per_step"],
             "dry_run_s": dry_s, "card": smi}
         log(f"[dryrun] {arch}: {cell}")
+        log(f"[dryrun] {arch}: t_memory_ms {row['t_memory_ms']:.1f} over the "
+            f"measured {run['ms_per_step']:.1f} ms a step = "
+            f"{cell['t_memory_over_measured']:.3f}")
         cells.append(cell)
         if abs(cell["peak_ratio"] - 1) > DRY_RUN_PEAK_TOL:
             raise AssertionError(
                 f"dryrun {arch}: predicted peak {cell['predicted_peak_gb']} "
                 f"GB against the measured {cell['measured_peak_gb']} GB, "
                 f"beyond {DRY_RUN_PEAK_TOL:.0%}")
-    # llama3.2-3b's train_4k cell at full width on the production mesh
-    t0 = time.perf_counter()
-    row = dryrun.run_cell(LM_TRAIN_ARCH, "train_4k", make_production_mesh(),
-                          verbose=False)
-    dry_s = time.perf_counter() - t0
+    # llama3.2-3b's train_4k cell at full width on both production meshes
+    # (one fake process group of 512 ranks holds both)
+    fake_world(512)
+    report = {"cells": cells}
+    for multi_pod in (False, True):
+        t0 = time.perf_counter()
+        row = dryrun.run_cell(LM_TRAIN_ARCH, "train_4k",
+                              make_production_mesh(multi_pod=multi_pod),
+                              verbose=False)
+        dry_s = time.perf_counter() - t0
+        name = "2x16x16" if multi_pod else "16x16"
+        if row["status"] != "ok" or not row["collectives_in_backward"]:
+            dist.destroy_process_group()
+            raise AssertionError(f"dryrun {LM_TRAIN_ARCH} on {name}: no "
+                                 f"gradient collectives, or failed: {row}")
+        mesh = {key: row[key] for key in (
+            "cell", "chips", "peak_mem_gb_per_chip", "start_gb_per_chip",
+            "fits_80gb", "collectives", "collectives_in_backward",
+            "collective_gb_by_kind", "flops_per_chip", "gflops", "gbytes",
+            "t_compute_ms", "t_memory_ms", "t_memory_floor_ms",
+            "t_collective_ms", "bottleneck", "mfu_bound", "ops_per_chip")}
+        mesh.update(dry_run_s=dry_s, card=smi)
+        log(f"[dryrun] {LM_TRAIN_ARCH} on {name}: {mesh}")
+        report[f"mesh_{name}"] = mesh
     dist.destroy_process_group()
-    if row["status"] != "ok" or not row["collectives_in_backward"]:
-        raise AssertionError(f"dryrun {LM_TRAIN_ARCH} on 16x16: no gradient "
-                             f"collectives, or failed: {row}")
-    mesh = {key: row[key] for key in (
-        "cell", "chips", "peak_mem_gb_per_chip", "start_gb_per_chip",
-        "fits_80gb", "collectives", "collectives_in_backward",
-        "collective_gb_by_kind", "flops_per_chip", "gflops", "gbytes",
-        "t_compute_ms", "t_memory_ms", "t_memory_floor_ms",
-        "t_collective_ms", "bottleneck", "mfu_bound", "ops_per_chip")}
-    mesh.update(dry_run_s=dry_s, card=smi)
-    log(f"[dryrun] {LM_TRAIN_ARCH} on 16x16: {mesh}")
-    return {"cells": cells, "mesh_16x16": mesh,
-            "phase_s": time.perf_counter() - t_phase}
+    # parameters and optimizer state take no pod axis: only the batch's
+    # bytes a rank differ between the meshes
+    flat, pod = (report[f"mesh_{n}"]["start_gb_per_chip"]
+                 for n in ("16x16", "2x16x16"))
+    report["start_2x16x16_over_16x16"] = pod / flat
+    if abs(pod / flat - 1) > DRY_RUN_START_TOL:
+        raise AssertionError(
+            f"dryrun {LM_TRAIN_ARCH}: {pod} GB a rank at the start on "
+            f"2x16x16 against {flat} GB on 16x16, beyond "
+            f"{DRY_RUN_START_TOL:.0%}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report
 
 
 def faults_trainer_runs(torch, dev, g, store):
@@ -3993,7 +4025,7 @@ def main(argv):
     kernels += k4_bwd + [k5_bwd]
     log(f"[lm_train] phase in {lm_train['phase_s']:.1f} s")
 
-    # --- 10. the dry run of phase 9's cells, then on the 16 x 16 mesh ------
+    # --- 10. the dry run of phase 9's cells, then on both production meshes
     dry = phase_dryrun((lm_train, lm_train["hybrid"], lm_train["ssm"]), smi)
     log(f"[dryrun] phase in {dry['phase_s']:.1f} s")
 

@@ -31,6 +31,7 @@ drops the non-dividing axis) asks.
 """
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Any
@@ -146,12 +147,13 @@ def current_ctx() -> ShardingCtx | None:
 
 class _Constrain(torch.autograd.Function):
     """Redistribute to ``want``, and hold the gradient to ``want`` too, as
-    XLA's sharding constraint binds the cotangent."""
+    XLA's sharding constraint binds the cotangent (with ``grad_only`` the
+    forward leaves ``x`` as it is)."""
 
     @staticmethod
-    def forward(ctx, x, want):
+    def forward(ctx, x, want, grad_only=False):
         ctx.want = want
-        if tuple(x.placements) == want:
+        if grad_only or tuple(x.placements) == want:
             return x.view_as(x)
         return x.redistribute(x.device_mesh, want)
 
@@ -159,7 +161,7 @@ class _Constrain(torch.autograd.Function):
     def backward(ctx, g):
         if isinstance(g, DTensor) and tuple(g.placements) != ctx.want:
             g = g.redistribute(g.device_mesh, ctx.want)
-        return g, None
+        return g, None, None
 
 
 def annotate(x, *names):
@@ -175,7 +177,17 @@ def annotate(x, *names):
         if tuple(x.placements) == want:
             return x
         return x.redistribute(x.device_mesh, want)
-    return _Constrain.apply(x, want)
+    return _Constrain.apply(x, want, False)
+
+
+def annotate_grad(x, *names):
+    """Hold ``x``'s gradient to the placements its logical axis names
+    resolve to, and leave ``x`` itself as it is (no-op without a mesh, for
+    a plain tensor or without grad)."""
+    if not (_ACTIVE and isinstance(x, DTensor) and torch.is_grad_enabled()
+            and x.requires_grad):
+        return x
+    return _Constrain.apply(x, _ACTIVE[-1].sharding(names, x.shape), True)
 
 
 def _heads_axis(name: str, counts) -> str | None:
@@ -207,6 +219,71 @@ def merged_heads(x, n: int, *also: int):
     if not (_ACTIVE and isinstance(x, DTensor)):
         return x
     return annotate(x, "batch", None, _heads_axis("heads", (n, *also)))
+
+
+def local_einsum(eq: str, *operands):
+    """``torch.einsum(eq, *operands)``, on a mesh run on each rank's shards.
+
+    DTensor contracts an einsum by a ``bmm`` whose batch dim flattens every
+    batch letter; torch refuses to flatten a dim sharded behind another
+    (e.g. ``bhk,bhkn->bhn`` with b on ``data`` and h on ``model``).  Where
+    every operand that holds a letter sharded on a mesh axis is sharded on
+    it there, each rank's einsum of its shards is its shard of the result:
+    a ``Shard`` of that letter in the output, or a ``Partial`` sum where
+    the letter is summed over.  Otherwise, and for plain tensors, this is
+    ``torch.einsum``."""
+    dts = [o for o in operands if isinstance(o, DTensor)]
+    if not dts:
+        return torch.einsum(eq, *operands)
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    mesh = dts[0].device_mesh
+    placements = []
+    for axis in range(mesh.ndim):
+        letters = set()
+        for spec, o in zip(ins, operands):
+            p = o.placements[axis] if isinstance(o, DTensor) else Replicate()
+            if isinstance(p, Shard):
+                letters.add(spec[p.dim])
+            elif not isinstance(p, Replicate):
+                return torch.einsum(eq, *operands)
+        if not letters:
+            placements.append(Replicate())
+            continue
+        if len(letters) > 1:
+            return torch.einsum(eq, *operands)
+        (letter,) = letters
+        for spec, o in zip(ins, operands):
+            p = o.placements[axis] if isinstance(o, DTensor) else Replicate()
+            if letter in spec and not (isinstance(p, Shard)
+                                       and spec[p.dim] == letter):
+                return torch.einsum(eq, *operands)
+        placements.append(Shard(out.index(letter)) if letter in out
+                          else Partial())
+    size = {c: n for spec, o in zip(ins, operands)
+            for c, n in zip(spec, o.shape)}
+    shape = tuple(size[c] for c in out)
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+    local = torch.einsum(eq, *[o.to_local() if isinstance(o, DTensor) else o
+                               for o in operands])
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=stride)
+
+
+def cache_zeros(like, n: int, length: int, dtype):
+    """Zeros of (n, B, length, ...) to write ``n`` layers' (B, S, ...)
+    ``like`` into, at ``[i, :, :S]``: for a DTensor ``like`` a DTensor on
+    its mesh placed as it is, one dim further in, so that each rank writes
+    its own shard (an in-place write into a plain tensor is not a DTensor
+    op); else a plain tensor on ``like``'s device."""
+    shape = (n, like.shape[0], length, *like.shape[2:])
+    if not isinstance(like, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+    placements = [Shard(p.dim + 1) if isinstance(p, Shard) else Replicate()
+                  for p in like.placements]
+    return zeros(shape, dtype=dtype, device_mesh=like.device_mesh,
+                 placements=placements)
 
 
 def _offset(x: DTensor, dim: int) -> int:

@@ -25,6 +25,8 @@ microbatches) on a 2 x 4 mesh.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single  # 40 cells
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh both --jobs 8 \\
+      --out experiments/dryrun_torch.json     # all 80, 8 processes
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-3b \\
       --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --device cpu \\
@@ -35,24 +37,26 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
+import math
 import os
 import time
 import traceback
 
 import torch
-from torch._subclasses.fake_tensor import (FakeTensorMode,
-                                           unset_fake_temporarily)
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.configs import SHAPES, ShapeSpec, get_config, list_configs
 from repro_torch.distributed.sharding import (ShardingCtx, param_logical_axes,
                                               param_specs, use_mesh)
 from repro_torch.launch import roofline
-from repro_torch.launch.mesh import (OneRank, make_local_mesh,
-                                     make_production_mesh, mesh_size)
-from repro_torch.launch.op_cost import OpCounter
+from repro_torch.launch.mesh import (OneRank, fake_world, make_local_mesh,
+                                     make_mesh, mesh_size)
+from repro_torch.launch.op_cost import Cost, OpCounter
 from repro_torch.models import encdec, lm, steps
 from repro_torch.train import optim
 
@@ -100,6 +104,24 @@ def cache_specs(cache, ctx: ShardingCtx) -> dict:
         axes = axes + (None,) * (leaf.dim() - len(axes))
         out[key] = ctx.sharding(axes, tuple(leaf.shape))
     return out
+
+
+def token_placements(shape, ctx: ShardingCtx) -> tuple:
+    """Placements of a decode step's (B, 1) token ids."""
+    B = shape.global_batch
+    return ctx.sharding(("batch", None), (B, 1))
+
+
+def microbatches(cfg, shape, ctx: ShardingCtx) -> int:
+    """The train step's microbatch count after the reference's clamp.
+
+    Invariant learned in the reference's §Perf (kimi iterations 3/4): a
+    per-microbatch batch smaller than the batch-sharding degree silently
+    REPLICATES activations across the data axis -- clamp the
+    grad-accumulation depth to keep it a shard multiple."""
+    shards = ctx.axis_size(("pod", "data"))
+    return min(max(cfg.train_microbatches, 1),
+               max(shape.global_batch // shards, 1))
 
 
 def make_optimizer(cfg):
@@ -157,13 +179,7 @@ def build_cell(cfg, shape, ctx: ShardingCtx, device="cuda", optimizer=None):
     """Inside ``FakeTensorMode``: ``(step_fn, args)``, args' tensors fake
     and, on a mesh of more than one rank, DTensors."""
     if shape.kind == "train":
-        # invariant learned in the reference's §Perf (kimi iterations 3/4):
-        # a per-microbatch batch smaller than the batch-sharding degree
-        # silently REPLICATES activations across the data axis -- clamp the
-        # grad-accumulation depth to keep it a shard multiple
-        shards = ctx.axis_size(("pod", "data"))
-        n_mb = min(max(cfg.train_microbatches, 1),
-                   max(shape.global_batch // shards, 1))
+        n_mb = microbatches(cfg, shape, ctx)
         if n_mb != cfg.train_microbatches:
             cfg = dataclasses.replace(cfg, train_microbatches=n_mb)
     dev = torch.device(device)
@@ -194,7 +210,7 @@ def build_cell(cfg, shape, ctx: ShardingCtx, device="cuda", optimizer=None):
         cache = _map_cache(cache, lambda key, a: distribute_tensor(
             a, mesh, pl[key]))
     tok = _place(torch.zeros((B, 1), dtype=torch.int32, device=dev), mesh,
-                 ctx.sharding(("batch", None), (B, 1)))
+                 token_placements(shape, ctx))
     return steps.make_decode_step(cfg), (model, cache, tok, 0)
 
 
@@ -209,7 +225,10 @@ def _fake_safe_dtensor():
     """DTensor's ``_StridedShard`` (the placement of a sharded dim folded
     into another by a view) works out its offsets by building an index
     tensor and reading it back, which a fake tensor cannot do; run that
-    metadata arithmetic on real (tiny, CPU) tensors for the dry run."""
+    metadata arithmetic on real (tiny, CPU) tensors for the dry run, with
+    every dispatch mode off, so that ``OpCounter`` does not count it
+    either (DTensor caches the result, so only the first such op of a
+    process would have counted it)."""
     from torch.distributed.tensor import placement_types as pt
     cls = getattr(pt, "_StridedShard", None)
     orig = getattr(cls, "local_shard_size_and_offset", None)
@@ -218,7 +237,7 @@ def _fake_safe_dtensor():
         return
 
     def patched(*args, **kwargs):
-        with unset_fake_temporarily():
+        with _disable_current_modes():
             return orig(*args, **kwargs)
     cls.local_shard_size_and_offset = patched
     try:
@@ -227,23 +246,123 @@ def _fake_safe_dtensor():
         cls.local_shard_size_and_offset = orig
 
 
+@contextlib.contextmanager
+def _greedy_plans():
+    """DTensor plans a redistribution that involves a ``_StridedShard`` or
+    a non-default shard order by a least-cost search over every placement
+    of every mesh dim (``DTensorRedistributePlanner.
+    generate_graph_based_transform_infos``), and it prices every candidate
+    strategy of an op by such a plan (``redistribute_cost``).  On a 3-D
+    mesh that pricing can take minutes for one op (torch 2.13: an einsum
+    of two sharded 5-D operands on 2 x 2 x 2), seconds on a 2-D mesh.
+    There the dry run prices candidates by DTensor's greedy plan, mesh dim
+    by mesh dim, as it prices every other redistribution, and
+    redistributes by the search as before
+    (``experiments/dryrun_shortcuts_torch.py compare`` holds the counts
+    against the search's).  A torch without the search runs unpatched."""
+    import sys
+
+    from torch.distributed.tensor import _collective_utils, _redistribute
+    cls = getattr(_redistribute, "DTensorRedistributePlanner", None)
+    search = getattr(cls, "generate_graph_based_transform_infos", None)
+    price = getattr(_collective_utils, "redistribute_cost", None)
+    if None in (search, price) or not hasattr(
+            cls, "generate_greedy_transform_infos"):
+        yield
+        return
+
+    def greedy(self, src_spec, dst_spec, full_tensor_shape):
+        return self.generate_greedy_transform_infos(src_spec, dst_spec)
+
+    @functools.lru_cache(maxsize=None)
+    def greedy_price(current_spec, target_spec):
+        cls.generate_graph_based_transform_infos = greedy
+        try:
+            return price(current_spec, target_spec)
+        finally:
+            cls.generate_graph_based_transform_infos = search
+    users = [m for name, m in list(sys.modules.items())
+             if name.startswith("torch.distributed.tensor")
+             and getattr(m, "redistribute_cost", None) is price]
+    for m in users:
+        m.redistribute_cost = greedy_price
+    try:
+        yield
+    finally:
+        for m in users:
+            m.redistribute_cost = price
+
+
 def mesh_name(mesh) -> str:
     return "x".join(str(s) for s in mesh.shape)
 
 
-def count_step(cfg, shape, mesh, device="cuda", optimizer=None):
-    """One step of the cell on fake tensors under ``OpCounter``: the
-    counter's ``Cost`` per rank."""
+def _count(cfg, shape, mesh, device, optimizer, runs=None):
+    """One step of the cell under ``OpCounter``; with ``runs``, a train
+    step over the first ``runs`` microbatches of the whole batch (which
+    is held from the start all the same)."""
     with _fake_safe_dtensor(), FakeTensorMode(), use_mesh(mesh) as ctx:
         fn, args = build_cell(cfg, shape, ctx, device, optimizer)
         counter = OpCounter()
         counter.track(args)
+        if runs:
+            state, batch = args
+            args = (state, {k: v[:runs] for k, v in batch.items()})
         rep = (implicit_replication() if _distributed(mesh)
                else contextlib.nullcontext())
         with rep, counter:
             fn(*args)
         del fn, args
     return counter.cost
+
+
+def _extrapolate(one: Cost, two: Cost, n: int) -> Cost:
+    """The cost of a train step of ``n`` microbatches from steps of one
+    and two: every microbatch after the first runs the second's ops, and
+    starts from the same live bytes (parameters, optimizer state, batch,
+    gradient accumulators, the last microbatch's metrics), so it adds
+    ``two - one`` and reaches the second's peak."""
+    def lin(a, b):
+        return b + (n - 2) * (b - a)
+
+    def lin_dict(a, b):
+        return {k: lin(a.get(k, 0), b.get(k, 0)) for k in {*a, *b}}
+    return Cost(flops=lin(one.flops, two.flops),
+                hbm_bytes=lin(one.hbm_bytes, two.hbm_bytes),
+                peak_bytes=max(one.peak_bytes, two.peak_bytes),
+                start_bytes=two.start_bytes,
+                coll_bytes=lin_dict(one.coll_bytes, two.coll_bytes),
+                coll_count=lin_dict(one.coll_count, two.coll_count),
+                coll_count_backward=lin_dict(one.coll_count_backward,
+                                             two.coll_count_backward),
+                flops_by_op=lin_dict(one.flops_by_op, two.flops_by_op),
+                n_ops=lin(one.n_ops, two.n_ops))
+
+
+def count_step(cfg, shape, mesh, device="cuda", optimizer=None,
+               shortcuts=True):
+    """One step of the cell on fake tensors under ``OpCounter``: the
+    counter's ``Cost`` per rank.  Two shortcuts, which
+    ``shortcuts=False`` leaves out (to check that both count alike):
+
+    * on a mesh of three axes or more, candidate shardings are priced by
+      greedy plans (``_greedy_plans``);
+    * a train step of more than 3 microbatches (after the clamp) runs
+      steps of 1 and 2 and extrapolates (``_extrapolate``): the step's
+      time goes into dispatching each op through DTensor and the fake
+      tensor mode, and kimi-k2 runs 16 microbatches on 16 x 16."""
+    plans = (_greedy_plans() if shortcuts and len(mesh.shape) >= 3
+             else contextlib.nullcontext())
+    with plans:
+        n = 0
+        if shape.kind == "train":
+            with use_mesh(mesh) as ctx:
+                n = microbatches(cfg, shape, ctx)
+        if not (shortcuts and n > 3):
+            return _count(cfg, shape, mesh, device, optimizer)
+        one = _count(cfg, shape, mesh, device, optimizer, runs=1)
+        two = _count(cfg, shape, mesh, device, optimizer, runs=2)
+    return _extrapolate(one, two, n)
 
 
 # ---------------------------------------------------------------------------
@@ -302,13 +421,67 @@ def run_cell(arch: str, shape_name: str, mesh, verbose: bool = True, *,
                 "error": f"{type(e).__name__}: {str(e)[:500]}"}
 
 
+PRODUCTION = {"single": ["16x16"], "multi": ["2x16x16"],
+              "both": ["16x16", "2x16x16"]}
+
+
+def _mesh(spec: str, device: str):
+    """The mesh a spec names: ``DxM`` (``data, model``) or ``PxDxM`` (a
+    leading ``pod`` axis, as the 2 x 16 x 16 production mesh)."""
+    sizes = tuple(int(x) for x in spec.split("x"))
+    if len(sizes) == 3:
+        return make_mesh(sizes, ("pod", "data", "model"), device)
+    return make_local_mesh(*sizes, device)
+
+
 def _meshes(spec: str, device: str) -> list:
-    if spec in ("single", "multi", "both"):
-        return [make_production_mesh(multi_pod=mp, device=device) for mp in
-                {"single": [False], "multi": [True],
-                 "both": [False, True]}[spec]]
-    data, model = (int(x) for x in spec.split("x"))
-    return [make_local_mesh(data, model, device)]
+    return [_mesh(s, device) for s in PRODUCTION.get(spec, [spec])]
+
+
+def _cell_row(mesh_spec, arch, shape, device, reduced) -> dict:
+    """One cell of the sweep: its mesh built here, so that a worker
+    process of ``--jobs`` makes its own fake process group."""
+    cfg, sp = get_config(arch), SHAPES[shape]
+    if reduced:
+        cfg, sp = reduce_cell(cfg, sp)
+    return run_cell(arch, shape, _mesh(mesh_spec, device), device=device,
+                    cfg=cfg, shape=sp)
+
+
+def _work(cell) -> int:
+    """A cell's share of the sweep's time, for ``--jobs`` to start the
+    longest first: the layers a step runs times its microbatches."""
+    _, arch, shape, _, _ = cell
+    cfg = get_config(arch)
+    n = cfg.n_layers + cfg.n_enc_layers
+    return n * (cfg.train_microbatches if SHAPES[shape].kind == "train"
+                else 1)
+
+
+def _world(n: int) -> None:
+    if n > 1:
+        fake_world(n)
+
+
+def sweep(cells, jobs: int = 1) -> list:
+    """The rows of ``cells`` (``_cell_row``'s arguments), in their order;
+    with ``jobs`` above 1 from that many spawned processes, the longest
+    cells first.  Each process makes the fake process group of the largest
+    mesh first, so that meshes of every size live in it."""
+    n = max(math.prod(int(x) for x in c[0].split("x")) for c in cells)
+    if jobs <= 1:
+        _world(n)
+        return [_cell_row(*c) for c in cells]
+    import multiprocessing
+    order = sorted(range(len(cells)), key=lambda i: -_work(cells[i]))
+    rows = [None] * len(cells)
+    with multiprocessing.get_context("spawn").Pool(
+            jobs, initializer=_world, initargs=(n,)) as pool:
+        results = pool.starmap_async(_cell_row, [cells[i] for i in order],
+                                     chunksize=1).get()
+    for i, row in zip(order, results):
+        rows[i] = row
+    return rows
 
 
 def main(argv=None):
@@ -323,12 +496,16 @@ def main(argv=None):
                     "torch, does no GPU work.  cpu: the CPU program, that "
                     "is the kernels' plain versions; runs anywhere")
     ap.add_argument("--mesh", default=None,
-                    help="single (16x16), multi (2x16x16), both, or DxM; "
+                    help="single (16x16), multi (2x16x16), both, DxM, or "
+                    "PxDxM (a pod axis); "
                     "default single on cuda, 2x4 on cpu")
     ap.add_argument("--width", default=None, choices=["full", "reduced"],
                     help="reduced: the tests' cut (reduced config, 32 "
                     "tokens, batch 8, 2 microbatches); default full on "
                     "cuda, reduced on cpu")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run in this many processes at once, the "
+                    "longest first; each row keeps its own t_run_s")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     cpu = args.device == "cpu"
@@ -338,15 +515,13 @@ def main(argv=None):
     archs = list_configs() if args.arch == "all" else args.arch.split(",")
     shapes = list(SHAPES) if args.shape == "all" else args.shape.split(",")
 
-    rows = []
-    for mesh in _meshes(mesh_spec, args.device):
-        for arch in archs:
-            for shape in shapes:
-                cfg, sp = get_config(arch), SHAPES[shape]
-                if reduced:
-                    cfg, sp = reduce_cell(cfg, sp)
-                rows.append(run_cell(arch, shape, mesh, device=args.device,
-                                     cfg=cfg, shape=sp))
+    cells = [(spec, arch, shape, args.device, reduced)
+             for spec in PRODUCTION.get(mesh_spec, [mesh_spec])
+             for arch in archs for shape in shapes]
+    t0 = time.time()
+    rows = sweep(cells, args.jobs)
+    print(f"sweep: {len(rows)} cells in {time.time() - t0:.1f} s "
+          f"({args.jobs} process{'es' if args.jobs > 1 else ''})")
     ok = sum(r.get("status") == "ok" for r in rows)
     skip = sum(r.get("status") == "skip" for r in rows)
     fail = sum(r.get("status") == "fail" for r in rows)

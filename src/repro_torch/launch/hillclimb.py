@@ -130,24 +130,40 @@ CHAINS = {
 }
 
 
+def _variant_row(cell: str, i: int, device: str) -> dict:
+    """Variant ``i`` of ``cell``'s chain on the 16 x 16 mesh, built here
+    (a worker process of ``--jobs`` makes its own fake process group)."""
+    arch, shape_name, chain = CHAINS[cell]()
+    label, hypothesis, cfg = chain[i]
+    row = run_variant(cfg, SHAPES[shape_name],
+                      make_production_mesh(device=device),
+                      f"{arch}/{shape_name}/{label}", device)
+    row["hypothesis"] = hypothesis
+    row["variant"] = label
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cell", required=True, choices=list(CHAINS))
     ap.add_argument("--out", default="experiments/perf_iterations_torch.json")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="as launch/dryrun.py's --device")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="variants run in this many processes at once")
     args = ap.parse_args(argv)
 
-    arch, shape_name, chain = CHAINS[args.cell]()
-    shape = SHAPES[shape_name]
-    mesh = make_production_mesh(device=args.device)
-    rows = []
-    for label, hypothesis, cfg in chain:
-        row = run_variant(cfg, shape, mesh, f"{arch}/{shape_name}/{label}",
-                          args.device)
-        row["hypothesis"] = hypothesis
-        row["variant"] = label
-        rows.append(row)
+    tasks = [(args.cell, i, args.device)
+             for i in range(len(CHAINS[args.cell]()[2]))]
+    if args.jobs > 1:
+        import multiprocessing
+        with multiprocessing.get_context("spawn").Pool(args.jobs) as pool:
+            rows = pool.starmap_async(_variant_row, tasks,
+                                      chunksize=1).get()
+    else:
+        rows = [_variant_row(*t) for t in tasks]
+    for row in rows:
+        label = row["variant"]
         print(f"[{label}] mem {row['t_memory_ms']:.0f}ms "
               f"(floor {row['t_memory_floor_ms']:.0f}) "
               f"coll {row['t_collective_ms']:.0f}ms "

@@ -18,8 +18,9 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.device_mesh import DeviceMesh
 
 
 @dataclass(frozen=True)
@@ -37,24 +38,28 @@ class OneRank:
 
 
 def fake_world(n: int) -> None:
-    """Make the default process group torch's ``fake`` one of ``n`` ranks
-    (this process is rank 0), replacing a fake group of another size."""
+    """Make the default process group torch's ``fake`` one of at least
+    ``n`` ranks (this process is rank 0).  A smaller fake group is
+    replaced, which leaves every mesh made over it unusable (DTensor's
+    caches name its groups): make the largest first."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
-        if dist.get_world_size() == n and dist.get_backend() == "fake":
+        if dist.get_world_size() >= n and dist.get_backend() == "fake":
             return
         dist.destroy_process_group()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
 
 
 def make_mesh(shape: tuple, axes: tuple, device: str = "cuda"):
-    """A ``DeviceMesh`` of ``shape`` named ``axes`` over a fake process
-    group of that many ranks (``OneRank`` for one rank)."""
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over ranks 0..n-1 of a
+    fake process group of at least that many ranks (``OneRank`` for one
+    rank), so that meshes of several sizes live in one process."""
     n = math.prod(shape)
     if n == 1:
         return OneRank(device, tuple(axes))
     fake_world(n)
-    return init_device_mesh(device, tuple(shape), mesh_dim_names=tuple(axes))
+    return DeviceMesh(device, torch.arange(n).reshape(shape),
+                      mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda"):

@@ -26,7 +26,8 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.distributed.sharding import merged_heads, split_heads
+from repro_torch.distributed.sharding import (annotate, merged_heads,
+                                              split_heads)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init_, param, rmsnorm
 
@@ -165,14 +166,22 @@ def attend(q, k, v, *, causal=True, window=0, q_chunk=512, q_offset=0,
 
 
 def decode_attend(q, k_cache, v_cache, pos):
-    """Single-token decode. q: (B, 1, H, hd); caches: (B, T, K, hd).
-    ``pos`` is the index of the current token (attends to [0, pos]).
-    Scores in float32 (the reference's ``preferred_element_type``)."""
+    """Single-token decode. q: (B, 1, H, hd); caches: (B, T, K, hd) with
+    the time axis sequence-sharded over the ``model`` mesh axis (the
+    reference's annotations).  ``pos`` is the index of the current token
+    (attends to [0, pos]).  Scores in float32 (the reference's
+    ``preferred_element_type``).  On a mesh the query's heads are gathered
+    first: the scores' heads take no mesh axis in the reference either,
+    and DTensor cannot contract over a batch that flattens two sharded
+    dims (batch and heads)."""
     B, _, H, hd = q.shape
     T, K = k_cache.shape[1], k_cache.shape[2]
     scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(B, 1, K, H // K, hd)
+    qg = annotate(q, "batch", None, None, None).reshape(B, 1, K, H // K, hd)
+    k_cache = annotate(k_cache, "batch", "kv_seq", None, None)
+    v_cache = annotate(v_cache, "batch", "kv_seq", None, None)
     s = torch.einsum("bqkgd,btkd->bkgqt", qg.float(), k_cache.float()) * scale
+    s = annotate(s, "batch", None, None, None, "kv_seq")
     mask = torch.arange(T, device=q.device) <= pos
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)

@@ -28,7 +28,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.distributed.sharding import annotate
+from repro_torch.distributed.sharding import (annotate, merged_heads,
+                                              split_heads)
 from repro_torch.models.attention import (Attention, attend, attention_block,
                                           attention_decode_block,
                                           decode_attend, output_proj)
@@ -115,24 +116,24 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 def _cross_kv(enc_out, p: Attention, cfg: ModelConfig):
     """Cross-attention keys and values (B, Te, K, hd) from the encoder
     output, biases included."""
-    B, Te, _ = enc_out.shape
     k, v = enc_out @ p.wk, enc_out @ p.wv
     if hasattr(p, "bk"):
         k, v = k + p.bk, v + p.bv
-    shape = (B, Te, cfg.n_kv_heads, cfg.head_dim)
-    return k.reshape(shape), v.reshape(shape)
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    return (split_heads(k, K, hd, "kv_heads"),
+            split_heads(v, K, hd, "kv_heads"))
 
 
 def _xattn(x, p: Attention, cfg: ModelConfig, enc_out):
     """Cross attention: q from x, k/v from the encoder output, every query
     sees every frame (K4, non-causal, on the card)."""
-    B, S, _ = x.shape
     q = x @ p.wq
     if hasattr(p, "bq"):
         q = q + p.bq
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = split_heads(q, cfg.n_heads, cfg.head_dim, "heads", cfg.n_kv_heads)
     k, v = _cross_kv(enc_out, p, cfg)
-    return output_proj(attend(q, k, v, causal=False, q_chunk=512), p)
+    o = attend(q, k, v, causal=False, q_chunk=512)
+    return output_proj(merged_heads(o, cfg.n_heads, cfg.n_kv_heads), p)
 
 
 def _enc_layer(x, lp: EncDecLayer, cfg: ModelConfig):
@@ -226,7 +227,8 @@ def decode_one(params: EncDec, cfg: ModelConfig, x, cache, pos: int):
         q = hx @ lp.xattn.wq
         if hasattr(lp.xattn, "bq"):
             q = q + lp.xattn.bq
-        q = q.reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        q = split_heads(q, cfg.n_heads, cfg.head_dim, "heads",
+                        cfg.n_kv_heads)
         ck, cv = cache["cross_k"][i], cache["cross_v"][i]
         x = x + output_proj(decode_attend(q, ck, cv, ck.shape[1] - 1),
                             lp.xattn)

@@ -46,7 +46,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
-from repro_torch.distributed.sharding import annotate, take_rows
+from repro_torch.distributed.sharding import (annotate, annotate_grad,
+                                              cache_zeros, take_rows)
 from repro_torch.models import encdec, rglru, rwkv6
 from repro_torch.models.attention import (Attention, attention_block,
                                           attention_decode_block)
@@ -304,12 +305,27 @@ def _attn_layer_fwd(x, lp: AttnLayer, cfg: ModelConfig, q_chunk: int):
     # sequence dim between blocks
     seq_ax = "seq_sp" if cfg.seq_parallel else None
     x = annotate(x, "batch", seq_ax, None)
-    h = apply_norm(x, lp.ln1, cfg.norm)
+    h = _seq_gathered(apply_norm(x, lp.ln1, cfg.norm), cfg)
     h, kv = attention_block(h, lp.attn, cfg, window=cfg.window,
                             q_chunk=q_chunk)
-    x = annotate(x + h, "batch", seq_ax, None)
-    h, aux = _ffn(apply_norm(x, lp.ln2, cfg.norm), lp, cfg)
-    return annotate(x + h, "batch", seq_ax, None), kv, aux
+    x = annotate(x + _seq_gathered(h, cfg, grad=True), "batch", seq_ax, None)
+    h, aux = _ffn(_seq_gathered(apply_norm(x, lp.ln2, cfg.norm), cfg), lp,
+                  cfg)
+    return (annotate(x + _seq_gathered(h, cfg, grad=True), "batch", seq_ax,
+                     None), kv, aux)
+
+
+def _seq_gathered(h, cfg: ModelConfig, grad: bool = False):
+    """Sequence-parallel TP's all-gathers of the sequence, which GSPMD
+    inserts by itself for the reference: ahead of a block's products, and
+    (``grad``) of the gradient reaching a block's output, since DTensor
+    cannot flatten (B, S) for a product, or its backward, with S
+    sharded."""
+    if not cfg.seq_parallel:
+        return h
+    if grad:
+        return annotate_grad(h, "batch", None, None)
+    return annotate(h, "batch", None, None)
 
 
 def _rec_layer_fwd(x, lp: RecLayer, cfg: ModelConfig):
@@ -398,6 +414,7 @@ def embed_tokens(params, cfg: ModelConfig, tokens):
 
 
 def logits_fn(params, cfg: ModelConfig, hidden):
+    hidden = _seq_gathered(hidden, cfg)
     return annotate(hidden @ params.unembed, "batch", None, "vocab")
 
 
@@ -487,10 +504,13 @@ def prefill(params: LM, cfg: ModelConfig, x, extra_len: int = 0,
     if cfg.block == "rwkv":
         x = apply_norm(x, params.ln0, cfg.norm)
     if not cfg.pattern and cfg.block == "attn":
-        B, S, _ = x.shape
-        cache = init_cache(cfg, B, S + extra_len, x.device)
+        S = x.shape[1]
+        dtype, cache = getattr(torch, cfg.dtype), None
         for _, name, i, lp in _layers(params, cfg):
             x, st, _ = _layer_fwd(x, name, lp, cfg, q_chunk)
+            if cache is None:        # on a mesh placed as the layer's k, v
+                cache = {n: cache_zeros(st[n], cfg.n_layers, S + extra_len,
+                                        dtype) for n in ("k", "v")}
             cache["k"][i, :, :S] = st["k"]
             cache["v"][i, :, :S] = st["v"]
         return apply_norm(x, params.final_norm, cfg.norm), cache

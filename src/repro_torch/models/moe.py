@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import annotate
+from repro_torch.distributed.sharding import annotate, local_einsum
 from repro_torch.models.layers import MLP, dense_init_, gelu, mlp, param
 
 
@@ -213,7 +213,7 @@ def _moe_block(x, p: MoE, mcfg: MoEConfig, act: str = "swiglu"):
         h = gelu(torch.einsum("egcd,edf->egcf", expert_in, we.w_up))
     expert_out = torch.einsum("egcf,efd->egcd", h, we.w_down)
     expert_out = annotate(expert_out, "experts", "batch", None, None)
-    y = torch.einsum("egcd,gsec->gsd", expert_out, combine.to(x.dtype))
+    y = local_einsum("egcd,gsec->gsd", expert_out, combine.to(x.dtype))
     y = annotate(y, "batch", None, None).reshape(B, S, D)
 
     if hasattr(p, "shared"):

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import split_heads
+from repro_torch.distributed.sharding import local_einsum, split_heads
 from repro_torch.kernels.rwkv_scan.ops import wkv
 from repro_torch.models.layers import dense_init_, param
 
@@ -120,8 +120,8 @@ def ddlerp(x, xx, p: TimeMix):
 def wkv_step(r, k, v, logw, u, state):
     """Exact single-token recurrence. r,k,v,logw: (B,H,N); state:
     (B,H,N,N)."""
-    a = torch.einsum("bhk,bhn->bhkn", k, v)
-    y = torch.einsum("bhk,bhkn->bhn", r, state + u[None, :, :, None] * a)
+    a = local_einsum("bhk,bhn->bhkn", k, v)
+    y = local_einsum("bhk,bhkn->bhn", r, state + u[None, :, :, None] * a)
     state = torch.exp(logw)[..., None] * state + a
     return y, state
 

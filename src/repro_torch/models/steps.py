@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.distributed.sharding import take_last
+from repro_torch.distributed.sharding import cache_zeros, take_last
 from repro_torch.models import encdec, lm
 from repro_torch.train.optim import global_norm
 
@@ -132,13 +132,11 @@ def _prefill_encdec(params, cfg: ModelConfig, batch, extra_len: int):
     tok = lm.embed_tokens(params, cfg, batch["tokens"])
     hidden, kvs = encdec.decode_train(params, cfg, tok, enc_out,
                                       return_kv=True)
-    B, S = batch["tokens"].shape
+    S = batch["tokens"].shape[1]
     self_c = {}
     for j, name in enumerate(("k", "v")):
         a = kvs[0][j]
-        self_c[name] = torch.zeros((cfg.n_layers, B, S + extra_len,
-                                    *a.shape[2:]), dtype=a.dtype,
-                                   device=a.device)
+        self_c[name] = cache_zeros(a, cfg.n_layers, S + extra_len, a.dtype)
         self_c[name][:, :, :S] = torch.stack([kv[j] for kv in kvs])
     return hidden, {"self": self_c, "cross_k": ck, "cross_v": cv}
 

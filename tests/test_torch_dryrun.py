@@ -14,6 +14,7 @@
   versions' outputs, the registered FLOPs, and the routing (only a fake
   tensor takes them).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -36,7 +37,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import dataclasses, json, sys
+import math
 from repro_torch.configs import SHAPES, get_config
+from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_local_mesh
 
@@ -51,6 +54,70 @@ if sys.argv[1] == "cells":
                           shape, "--out", path])
         for row in json.load(open(path)):
             out[row["cell"]] = dict(row, rc=rc)
+elif sys.argv[1].startswith("pod:"):
+    # the reduced cut of each cell on a 2 x 2 x 2 mesh (a pod axis), and of
+    # each train cell on 2 x 2 too; the PxDxM spec names the pod axis
+    mesh = dryrun._meshes("2x2x2", "cpu")[0]
+    out["mesh"] = [list(mesh.mesh_dim_names), list(mesh.shape)]
+    for arch in sys.argv[1][4:].split(","):
+        for shape in SHAPES:
+            cfg, sp = dryrun.reduce_cell(get_config(arch), SHAPES[shape])
+            meshes = ("2x2x2", "2x2") if sp.kind == "train" else ("2x2x2",)
+            for spec in meshes:
+                mesh = dryrun._mesh(spec, "cpu")
+                row = dryrun.run_cell(arch, shape, mesh, verbose=False,
+                                      device="cpu", cfg=cfg, shape=sp)
+                out[row["cell"]] = {k: row.get(k) for k in (
+                    "status", "error", "start_gb_per_chip",
+                    "collectives_in_backward", "t_run_s")}
+                if sp.kind == "train":
+                    # the batch's bytes a rank, each leaf's shard
+                    ctx = ShardingCtx(mesh)
+                    small = dataclasses.replace(
+                        cfg, train_microbatches=dryrun.microbatches(cfg, sp,
+                                                                    ctx))
+                    n = 0
+                    for shp, dt, pl in dryrun.batch_specs(small, sp,
+                                                          ctx).values():
+                        local = list(shp)
+                        for axis, p in enumerate(pl):
+                            if p.is_shard():
+                                local[p.dim] //= mesh.shape[axis]
+                        n += math.prod(local) * dt.itemsize
+                    out[row["cell"]]["batch_bytes"] = n
+elif sys.argv[1].startswith("mb:"):
+    # train steps of 4 microbatches on 2 x 2, extrapolated from steps of 1
+    # and 2 (the dry run's default) or run whole; before them, a train
+    # cell counted cold and again warm
+    if sys.argv[1] == "mb:short":
+        cfg, sp = dryrun.reduce_cell(get_config("llama3.2-3b"),
+                                     SHAPES["train_4k"])
+        for way in ("cold", "warm"):
+            c = dryrun.count_step(cfg, sp, make_local_mesh(2, 2, "cpu"),
+                                  "cpu")
+            out[way] = [c.flops, c.hbm_bytes, c.peak_bytes, c.n_ops,
+                        c.coll_count, c.coll_bytes]
+    for arch in ("llama3.2-3b", "qwen2-moe-a2.7b"):
+        cfg, sp = dryrun.reduce_cell(get_config(arch), SHAPES["train_4k"])
+        cfg = dataclasses.replace(cfg, train_microbatches=4)
+        c = dryrun.count_step(cfg, sp, make_local_mesh(2, 2, "cpu"), "cpu",
+                              shortcuts=sys.argv[1] == "mb:short")
+        out[arch] = [c.flops, c.hbm_bytes, c.peak_bytes, c.start_bytes,
+                     c.n_ops, c.coll_count, c.coll_bytes,
+                     c.coll_count_backward, c.flops_by_op]
+elif sys.argv[1].startswith("plans:"):
+    # the counts of reduced decode cells on 2 x 2 x 2 with candidates
+    # priced by greedy plans or by DTensor's search (one process each:
+    # DTensor keeps the shardings it chose for the process's life)
+    greedy = sys.argv[1] == "plans:greedy"
+    for arch in ("llama3.2-3b", "recurrentgemma-2b", "rwkv6-7b"):
+        cfg, sp = dryrun.reduce_cell(get_config(arch), SHAPES["decode_32k"])
+        c = dryrun.count_step(cfg, sp, dryrun._mesh("2x2x2", "cpu"), "cpu",
+                              shortcuts=greedy)
+        out[f"{arch}/decode_32k"] = [
+            c.flops, c.hbm_bytes, c.peak_bytes, c.start_bytes, c.n_ops,
+            c.coll_count, c.coll_bytes, c.coll_count_backward,
+            c.flops_by_op]
 else:
     base, sp = dryrun.reduce_cell(get_config("llama3.2-3b"),
                                   SHAPES["train_4k"])
@@ -66,24 +133,41 @@ print(json.dumps(out))
 """
 
 
+ARCHS = ["kimi-k2-1t-a32b", "llama3.2-3b", "phi-3-vision-4.2b",
+         "qwen2-moe-a2.7b", "qwen2.5-3b", "qwen3-32b", "recurrentgemma-2b",
+         "rwkv6-7b", "stablelm-3b", "whisper-small"]
+SHAPE_NAMES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+# the pod-axis cells in four processes, each config's cells in one (most
+# of a cell's time is DTensor's first sharding of each op, shared by a
+# config's cells)
+POD_PARTS = ("pod:kimi-k2-1t-a32b,whisper-small",
+             "pod:rwkv6-7b,llama3.2-3b,qwen2.5-3b",
+             "pod:recurrentgemma-2b,stablelm-3b",
+             "pod:qwen3-32b,qwen2-moe-a2.7b,phi-3-vision-4.2b")
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    """The cells and the two per-rank comparisons at once, each in a
-    process of its own."""
+    """The cells, the two per-rank comparisons, the pod-axis cells and the
+    planners' comparison at once, each in a process of its own."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(ROOT, "src")
     tmp = str(tmp_path_factory.mktemp("dry"))
     procs = {part: subprocess.Popen([sys.executable, "-c", SCRIPT, part, tmp],
                                     env=env, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
-             for part in ("cells", "kv2", "kv4")}
-    out = {"per_rank": {}}
+             for part in ("cells", "kv2", "kv4", "plans:greedy",
+                          "plans:search", "mb:short", "mb:plain")
+             + POD_PARTS}
+    out = {"per_rank": {}, "pod": {}}
     for part, proc in procs.items():
-        stdout, stderr = proc.communicate(timeout=600)
+        stdout, stderr = proc.communicate(timeout=900)
         assert proc.returncode == 0, stderr[-3000:]
         got = json.loads(stdout.strip().splitlines()[-1])
-        if part == "cells":
-            out["cells"] = got
+        if part.startswith(("cells", "plans", "mb")):
+            out[part] = got
+        elif part.startswith("pod:"):
+            out["pod"].update(got)
         else:
             out["per_rank"].update(got)
     return out
@@ -119,6 +203,71 @@ def test_per_rank_flops_times_ranks(run):
     # a rank holds its shards: less than one rank holding everything
     assert eight["start"] < one["start"]
     assert one["start"] < one["peak"]
+
+
+def test_pod_axis_mesh_spec(run):
+    """``PxDxM`` makes a ("pod", "data", "model") mesh."""
+    assert run["pod"]["mesh"] == [["pod", "data", "model"], [2, 2, 2]]
+
+
+@pytest.mark.parametrize("shape_name", SHAPE_NAMES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reduced_cells_on_a_pod_mesh(run, arch, shape_name):
+    """The tests' cut of every cell on a 2 x 2 x 2 mesh: ``ok``, or
+    skipped where and only where the reference's ``cfg.supports`` skips."""
+    from repro.configs import SHAPES as REF_SHAPES
+    from repro.configs import get_config as ref_config
+    row = run["pod"][f"{arch}/{shape_name}/2x2x2"]
+    if ref_config(arch).supports(REF_SHAPES[shape_name]):
+        assert row["status"] == "ok", row
+    else:
+        assert row["status"] == "skip", row
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pod_axis_keeps_start_bytes(run, arch):
+    """Parameters and optimizer state take no pod axis: a rank holds the
+    same bytes of them at the start of a train step on 2 x 2 x 2 as on
+    2 x 2, to the byte, and half the batch's (its shards over pod x data);
+    the backward holds collectives on both.  (At the tests' cut the batch
+    is a few percent of a rank's bytes, phi-3-vision's stub embeddings;
+    at full width ``chip_smoke.py`` holds the whole to 1%.)"""
+    pod = run["pod"][f"{arch}/train_4k/2x2x2"]
+    flat = run["pod"][f"{arch}/train_4k/2x2"]
+    assert pod["status"] == flat["status"] == "ok", (pod, flat)
+    held = [round(r["start_gb_per_chip"] * 1e9) - r["batch_bytes"]
+            for r in (pod, flat)]
+    assert held[0] == held[1] > 0, (pod, flat)
+    assert 2 * pod["batch_bytes"] == flat["batch_bytes"], (pod, flat)
+    assert pod["collectives_in_backward"] and \
+        flat["collectives_in_backward"], (pod, flat)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "recurrentgemma-2b",
+                                  "rwkv6-7b"])
+def test_greedy_pricing_counts_as_dtensors_search(run, arch):
+    """On a 3-D mesh the dry run prices candidate shardings by greedy
+    plans (``_greedy_plans``): on these decode cells FLOPs, HBM bytes,
+    peak and start bytes, ops and collectives by kind equal those of a
+    process that prices by DTensor's own search, to the integer."""
+    cell = f"{arch}/decode_32k"
+    assert run["plans:greedy"][cell] == run["plans:search"][cell]
+
+
+def test_counts_do_not_depend_on_a_warm_process(run):
+    """A cell counts the same in a process that has run it before: the
+    index arithmetic DTensor caches for ``_StridedShard`` (a cache miss
+    runs it) is kept out of the counts."""
+    assert run["mb:short"]["cold"] == run["mb:short"]["warm"]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-moe-a2.7b"])
+def test_microbatches_extrapolate_exactly(run, arch):
+    """A train step of 4 microbatches counted from steps of 1 and 2
+    (``dryrun._extrapolate``) equals the whole step's count to the
+    integer: FLOPs, HBM bytes, peak and start bytes, ops, collectives by
+    kind and FLOPs by op."""
+    assert run["mb:short"][arch] == run["mb:plain"][arch]
 
 
 # ---------------------------------------------------------------------------
@@ -270,3 +419,119 @@ def test_hillclimb_variants_run():
                for r in rows)
     # bf16 gradient accumulators hold half the bytes of float32 ones
     assert rows[1]["peak_mem_gb_per_chip"] < rows[0]["peak_mem_gb_per_chip"]
+
+
+# ---------------------------------------------------------------------------
+# The dry run's input placements against the reference's, spec by spec
+# ---------------------------------------------------------------------------
+
+SHAPE_TABLES = {"16x16": {"data": 16, "model": 16},
+                "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+
+class _Table:
+    """A production mesh's shape table (``test_torch_sharding.FakeMesh``);
+    no process group."""
+
+    def __init__(self, shape):
+        self.shape = shape
+
+
+def _ref_dryrun():
+    """``repro.launch.dryrun``, whose import sets ``XLA_FLAGS`` for 512 host
+    devices: set back at once, so that no later test or subprocess of this
+    worker inherits it (nothing here compiles)."""
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        from repro.launch import dryrun as ref
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return ref
+
+
+def _ref_specs(ref, cfg, shape, table, monkeypatch):
+    """The reference's own ``batch_specs``, ``cache_specs``, token spec and
+    microbatch clamp on a shape table: its ``ShardingCtx.spec`` in place of
+    the ``NamedSharding`` a real mesh would give, each leaf's
+    ``ShapeDtypeStruct`` kept as (shape, dtype name, spec)."""
+    import jax
+    from repro.distributed import sharding as ref_sharding
+    from repro.models import steps as ref_steps
+
+    class Leaf(tuple):
+        pass
+
+    class Ctx(ref_sharding.ShardingCtx):
+        def sharding(self, names, shp, memory_kind=None):
+            return self.spec(names, shp)
+
+    monkeypatch.setattr(ref, "_sds", lambda shp, dt, sh: Leaf(
+        (tuple(shp), jax.numpy.dtype(dt).name, sh)))
+    ctx = Ctx(_Table(table))
+    # repro/launch/dryrun.py:105-115, the clamp inside build_cell
+    shards = ctx.axis_size(("pod", "data"))
+    n_mb = min(max(cfg.train_microbatches, 1),
+               max(shape.global_batch // shards, 1))
+    if shape.kind == "train":
+        cfg = dataclasses.replace(cfg, train_microbatches=n_mb)
+    batch = ref.batch_specs(cfg, shape, ctx)
+    B, T = shape.global_batch, shape.seq_len
+    cache = {}
+    if shape.kind == "decode":
+        leaves = jax.tree_util.tree_flatten_with_path(
+            ref.cache_specs(ref_steps.eval_cache_shapes(cfg, B, T), ctx),
+            is_leaf=lambda x: isinstance(x, Leaf))[0]
+        cache = {".".join(str(p.key) for p in path): leaf
+                 for path, leaf in leaves}
+    return {"batch": batch, "cache": cache, "n_mb": n_mb,
+            "token": ctx.spec(("batch", None), (B, 1))}
+
+
+@pytest.mark.parametrize("table", list(SHAPE_TABLES))
+@pytest.mark.parametrize("shape_name", SHAPE_NAMES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_placements_match_reference(arch, shape_name, table,
+                                          monkeypatch):
+    """For every config and shape on both production shape tables: the
+    microbatch count after the clamp, the batch's shapes, dtypes and
+    placements, the decode cache's placements leaf by leaf and the token's
+    equal the reference's specs (as the port places a spec)."""
+    from repro.configs import SHAPES as REF_SHAPES
+    from repro.configs import get_config as ref_config
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.sharding import DEFAULT_RULES, ShardingCtx
+    from repro_torch.launch import dryrun
+    from repro_torch.models import encdec, lm
+
+    ref = _ref_specs(_ref_dryrun(), ref_config(arch), REF_SHAPES[shape_name],
+                     SHAPE_TABLES[table], monkeypatch)
+    cfg, shape = get_config(arch), SHAPES[shape_name]
+    ctx = ShardingCtx(_Table(SHAPE_TABLES[table]), dict(DEFAULT_RULES))
+    n_mb = dryrun.microbatches(cfg, shape, ctx)
+    assert n_mb == ref["n_mb"]
+    if shape.kind == "train":
+        cfg = dataclasses.replace(cfg, train_microbatches=n_mb)
+    got = dryrun.batch_specs(cfg, shape, ctx)
+    assert sorted(got) == sorted(ref["batch"])
+    for name, (shp, dt, placements) in got.items():
+        r_shape, r_dtype, r_spec = ref["batch"][name]
+        assert (tuple(shp), str(dt).removeprefix("torch.")) == \
+            (r_shape, r_dtype), name
+        assert placements == ctx.placements(r_spec), name
+    assert dryrun.token_placements(shape, ctx) == \
+        ctx.placements(ref["token"])
+    if shape.kind != "decode":
+        return
+    B, T = shape.global_batch, shape.seq_len
+    cache = (encdec.init_cache(cfg, B, T, T, device="meta") if cfg.enc_dec
+             else lm.init_cache(cfg, B, T, device="meta"))
+    got = dryrun.cache_specs(cache, ctx)
+    assert sorted(got) == sorted(ref["cache"])
+    flat = lm.flat_cache(cache)
+    for key, placements in got.items():
+        r_shape, _, r_spec = ref["cache"][key]
+        assert tuple(flat[key].shape) == r_shape, key
+        assert placements == ctx.placements(r_spec), key

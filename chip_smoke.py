@@ -3,8 +3,10 @@
 scale-out (a remote-tier cache, a dead peer, a serving fleet; K1-K3),
 out-of-core GNN training (K1, K2/K3 forward and backward), LM serving of
 every registered family, prefill then greedy decode (K4, K5), and the LM
-train step (K4 and K5, forward and backward) at full width, and the
-GNN trainer under injected IO faults, back-pressure and tracing (K1-K3).
+train step (K4 and K5, forward and backward) at full width, the GNN
+trainer under injected IO faults, back-pressure and tracing (K1-K3), and
+the trainer's write leg: trainable embeddings through the deep
+pipeline's split-phase write-back (K1, K2/K3 forward and backward).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --gnn-kernels OTHER/src   # phases 1, 3, 4 only,
@@ -14,6 +16,7 @@ GNN trainer under injected IO faults, back-pressure and tracing (K1-K3).
                                                     # (K4's and K5's rows),
                                                     # of another checkout
     python3 chip_smoke.py --faults                  # phases 1 and 11 only
+    python3 chip_smoke.py --writeback               # phases 1 and 12 only
 
 Imports nothing of JAX and nothing of the reference package.  Phases; any
 failure raises and the script exits non-zero:
@@ -316,13 +319,56 @@ failure raises and the script exits non-zero:
                is left, nor (once collected) the trainer, its pinned host
                tier or any gather's pinned stage or output; K1 on a fresh
                cache's tables agrees with its plain version bit for bit.
+  12. writeback — the trainer's write leg at full width: a fresh writable
+               IG-shaped store under build/smoke_writeback/ (its momentum
+               and Adam twins made by the trainer; about 1.1 GB each,
+               removed at the end), the trainer at its defaults with
+               trainable embeddings (momentum 0.9, sparse Adam 0.99) and
+               every write-leg knob (``WRITEBACK_KNOBS``):
+               a. 2 warm-up batches on a trainer of their own with seed 1
+               (K2's and K3's layer-1 backward inputs kept on the host),
+               then 8 counted under the tracer and the profiler with the
+               launch counters zeroed, and the epoch flush: wall ms a
+               batch, ms per ``pipe.*`` operator and per ``cache.*`` span,
+               busy share, top operations, peak memory, the write-back,
+               cache and IO stats of the feature, momentum and Adam
+               tables, the write leg's counters (dirty demotions, combined
+               tickets, flush barriers, write-through rows; each must be
+               above 0), the copy-on-write tier updates' calls, bytes and
+               host ms, K1 launches (at least one a batch), K2/K3 launches
+               by use: K3 as K2's backward and K2 as K3's backward at
+               layer 1 once a counted step;
+               b. no lost update: every (ids, delta) that reached the
+               feature cache's ``apply_delta`` in the counted run was
+               recorded; after the epoch flush every row equals its start
+               value plus its deltas within ``LOST_UPDATE_ATOL``, and with
+               the largest delta dropped from the expectation it does not;
+               c. a reduced trainer (``WRITEBACK_SMALL``: TRAIN_SMALL's
+               sizes, ``helios`` at ``prefetch_depth`` 1, the same
+               knobs) on the card and on the CPU over stores made alike:
+               sampled batches, write-back, cache and IO stats and
+               virtual_s identical (less what the prefetch operator's
+               thread timing decides, ``writeback_compare.PREFETCH_TIMED``,
+               held by its invariants), losses, parameters and the three
+               stores within phase 5b c's tolerances;
+               d. one random interleaving of the cache's read, write,
+               refresh, prefetch, flush and invalidate legs
+               (``tests/writeback_compare.py``, ``WRITEBACK_SEQ``) on a
+               cache with its device tier on the card (K1, the pinned host
+               tier, K2 in ``_device_rows``) beside the same sequence on
+               the CPU: every gather and the flushed stores bit-identical,
+               the caches' state equal after every operation;
+               e. K2 and K3 at their layer-1 embedding-backward shapes,
+               timed as in phase 4 (the ``writeback_backward_layer1``
+               rows under K2 and K3, each with its launches a step).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (K1-K5, K4's backward at llama's and recurrentgemma's layers and K5's at
 rwkv6-7b's), one ``{"server": ...}`` line, one
 ``{"train": ...}`` line, one ``{"llm": ...}`` line, one ``{"scale_out":
 ...}`` line, one ``{"lm_train": ...}`` line, one ``{"dryrun": ...}`` line,
-one ``{"faults": ...}`` line, and as the last line
+one ``{"faults": ...}`` line, one ``{"writeback": ...}`` line, and as the
+last line
 ``{"ok": true, "device": {...}}``.  With ``--gnn-kernels DIR`` it
 imports the port from DIR (another checkout's ``src``, to time
 two trees' K1-K3 with one method in one call), runs phases 1, 3 and 4,
@@ -334,7 +380,8 @@ rows, K5's backward row without a state and its forward saving
 checkpoints), to time two trees' K4 and K5 in one call, and a
 ``{"lm_kernels_of": DIR, "kernels": [...]}`` line.  With ``--faults`` it
 runs phase 1 (K1-K3 only) and phase 11 and prints the card, the
-``{"faults": ...}`` line and the last line.  Without a CUDA device,
+``{"faults": ...}`` line and the last line; with ``--writeback`` likewise
+phase 12 and the ``{"writeback": ...}`` line.  Without a CUDA device,
 or outside a checkout of the repository, it prints no result and exits
 non-zero.
 """
@@ -523,6 +570,34 @@ TRAIN_SMALL = dict(vertices=20_000, row_dim=128, batches=3,
                    mode="helios-nopipe", batch_size=256, fanouts=(10, 5),
                    hidden=64, train_embeddings=True, embedding_momentum=0.9,
                    embedding_adam=0.99, chaos=None, seed=0)
+# phase 12 (writeback): the write leg's knobs beside trainable embeddings
+# at the trainer's defaults, over fresh writable stores made under
+# WRITEBACK_ROOT.  At refresh_every 4 and the default half-life (16
+# batches) no refresh demotes a dirty row in 8 batches: the presampled
+# rows no batch touches go first.  With a half-life of 2 batches and a
+# refresh every batch, a refresh demotes rows the last batches wrote: on
+# the CPU, at this graph and batch with 8-dim rows (the same accesses),
+# 1,804-6,169 rows in the first flush window's refreshes and 4,565-4,615
+# then 9,298-9,761 in the second's, over 6 runs.  A combiner of 12,288 rows
+# takes the second window's two batches and releases them in one ticket.
+WRITEBACK_ROOT = os.path.join(ROOT, "build", "smoke_writeback")
+WRITEBACK_KNOBS = dict(train_embeddings=True, embedding_momentum=0.9,
+                       embedding_adam=0.99, embedding_flush_every=4,
+                       write_combine_rows=12288, cache_policy="online",
+                       refresh_every=1, policy_half_life=2.0,
+                       prefetch_rows=2048)
+# part c: TRAIN_SMALL's sizes and the same knobs in ``helios`` with one
+# batch in flight; 8 batches, so the flush barrier and the refresh each
+# come due twice
+WRITEBACK_SMALL = dict(TRAIN_SMALL, mode="helios", prefetch_depth=1,
+                       batches=8, **WRITEBACK_KNOBS)
+# as tests/test_torch_train.py: a row's float32 updates each round to half
+# an ulp of the row (|row| < 8: 2.4e-7), at most 8 of them here (one a
+# counted batch)
+LOST_UPDATE_ATOL = 1e-5
+# part d: one of the CPU tests' interleavings (tests/writeback_compare.py)
+WRITEBACK_SEQ = dict(seed=1000, policy="writeback", combine=16,
+                     mode="helios")
 
 
 def log(msg):
@@ -1562,12 +1637,14 @@ def backward_launches(ops) -> int:
 
 
 @contextlib.contextmanager
-def capture(g_ops, s_ops):
+def capture(g_ops, s_ops, keys=None):
     """The first inputs of each use of K2 and K3 while the block runs:
     ``_gather`` and ``_segment_sum`` (the forward and backward rules behind
     ``gather_rows`` and ``segment_sum``) are wrapped, and each use's first
     call is kept under (kernel, then the key of the wrappers' own
-    ``launches_by_use``).  Counts nothing; yields the dict."""
+    ``launches_by_use``).  With ``keys``, only those uses are kept, each
+    tensor copied to the host (so none stays on the card).  Counts
+    nothing; yields the dict."""
     seen = {}
     orig = (g_ops._gather, s_ops._segment_sum)
 
@@ -1575,7 +1652,11 @@ def capture(g_ops, s_ops):
         def call(x, *a, backward=False):
             key = (name, "backward" if backward else "forward",
                    tuple(x.shape), a[0].shape[0])
-            seen.setdefault(key, (x, *a))
+            if keys is None:
+                seen.setdefault(key, (x, *a))
+            elif key in keys and key not in seen:
+                seen[key] = tuple(t.cpu() if hasattr(t, "cpu") else t
+                                  for t in (x, *a))
             return fn(x, *a, backward=backward)
         return call
     g_ops._gather, s_ops._segment_sum = wrap("K2", orig[0]), wrap("K3",
@@ -1627,36 +1708,34 @@ def k1_wait(torch, run):
                     "queue_lag_ms_max": max(lag, default=None)}
 
 
-def phase_train(torch, dev, g, store, counters):
-    """Section 5b of the docstring, part a: OutOfCoreGNNTrainer at its
-    defaults on the IG-shaped store (read-only).  A warm-up trainer with
-    seed 1 takes TRAIN_WARM batches, so the counted trainer (seed 0) draws
-    none of the warm-up's seed sets; the counted one then takes
-    TRAIN_COUNTED under the tracer and the profiler.  Returns (report, the
-    first counted step's inputs and parameters, the K2/K3 launches by use
-    as the wrappers counted them)."""
+def counted_train(torch, dev, g, store, counters, cfg, probe=None,
+                  warm_ctx=None):
+    """TRAIN_WARM batches on a warm-up trainer with seed 1 (inside the
+    context ``warm_ctx()`` where given), so the counted trainer (seed 0)
+    draws none of the warm-up's seed sets; then TRAIN_COUNTED on the
+    counted one under the tracer and the profiler, its launch counters
+    zeroed just before, ``TrainerConfig(**cfg)`` both.  ``probe(tr)``,
+    where given, runs on the counted trainer before the counters are
+    zeroed and may return ``finish(tr, out, report)``, run after the
+    training, before the trainer closes.  Returns (report, the K2/K3
+    launches by use as the wrappers counted them, the launches by kernel,
+    the value ``warm_ctx`` gave)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
     from repro_torch.obs import trace
     g_ops, s_ops, l_ops = counters
     t0 = time.perf_counter()
-    with OutOfCoreGNNTrainer(g, store, TrainerConfig(
-            mode="helios", chaos=None, seed=1)) as warm:
-        warm.train(TRAIN_WARM)
-        torch.cuda.synchronize()
+    with (warm_ctx() if warm_ctx else contextlib.nullcontext()) as warm_val:
+        with OutOfCoreGNNTrainer(g, store, TrainerConfig(**cfg, seed=1)) \
+                as warm:
+            warm.train(TRAIN_WARM)
+            torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tr = OutOfCoreGNNTrainer(g, store, TrainerConfig(mode="helios",
-                                                     chaos=None, seed=0))
+    tr = OutOfCoreGNNTrainer(g, store, TrainerConfig(**cfg, seed=0))
     build_s = time.perf_counter() - t0
     try:
-        step_fn, step_in = tr.step_fn, []
-
-        def step_rec(state, *a):
-            if not step_in:
-                step_in.append((state["params"], a))
-            return step_fn(state, *a)
-        tr.step_fn = step_rec
+        finish = probe(tr) if probe is not None else None
         for m in counters:
             m.launches = 0
         for m in (g_ops, s_ops):
@@ -1677,7 +1756,6 @@ def phase_train(torch, dev, g, store, counters):
                     "K2_backward": backward_launches(g_ops),
                     "K3": s_ops.launches,
                     "K3_backward": backward_launches(s_ops)}
-        tr.step_fn = step_fn
         log_ = tr.metrics_log[-n:]
         report = {
             "config": dataclasses.asdict(tr.cfg),
@@ -1710,8 +1788,40 @@ def phase_train(torch, dev, g, store, counters):
             "launches_by_use": {
                 f"{k}/{d}/{'x'.join(map(str, sh))}/idx={i}": c
                 for (k, d, sh, i), c in sorted(counts.items())}}
+        report["cache_spans_ms_per_batch"] = span_ms(tracer, "cache.", n)
+        if finish is not None:
+            finish(tr, out, report)
     finally:
         tr.close()
+    losses = report["losses"]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    return report, counts, launches, warm_val
+
+
+def phase_train(torch, dev, g, store, counters):
+    """Section 5b of the docstring, part a: OutOfCoreGNNTrainer at its
+    defaults on the IG-shaped store (read-only), ``counted_train``.
+    Returns (report, the first counted step's inputs and parameters, the
+    K2/K3 launches by use as the wrappers counted them)."""
+    step_in = []
+
+    def probe(tr):
+        step_fn = tr.step_fn
+
+        def step_rec(state, *a):
+            if not step_in:
+                step_in.append((state["params"], a))
+            return step_fn(state, *a)
+        tr.step_fn = step_rec
+
+        def finish(tr, out, report):
+            tr.step_fn = step_fn
+        return finish
+    report, counts, launches, _ = counted_train(
+        torch, dev, g, store, counters, dict(mode="helios", chaos=None),
+        probe)
+    n = TRAIN_COUNTED
     if launches["K1"] != n:
         raise AssertionError(f"K1 launched {launches['K1']} times in {n} "
                              "training batches, not once per batch")
@@ -1719,9 +1829,6 @@ def phase_train(torch, dev, g, store, counters):
             "K2_backward"] or launches["K3"] <= launches["K3_backward"]:
         raise AssertionError(f"a kernel of the training path, forward or "
                              f"backward, never ran: {launches}")
-    losses = report["losses"]
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError(f"non-finite training loss: {losses}")
     log(f"[train] {report}")
     return report, step_in[0], counts
 
@@ -1813,9 +1920,10 @@ def train_kernel_rows(torch, seen, counts, n_batches, g_ops, g_ref, s_ops):
     return k2, k3
 
 
-def train_small(torch, g, root, where, fault=None):
-    """One TRAIN_SMALL run on ``where`` over a fresh writable store under
-    ``root``: the sampled node sets, the report, the losses, the final
+def train_small(torch, g, root, where, fault=None, small=TRAIN_SMALL):
+    """One ``small`` run (TRAIN_SMALL by default) on ``where`` over a
+    fresh writable store under ``root``: the sampled node sets, the
+    report, the losses, the final
     parameters (host) and, after the epoch flush, the embedding, momentum
     and Adam stores' rows (host numpy) and the global Adam step.
     ``fault`` names a deliberate error for a control run: "bf16_grads"
@@ -1828,7 +1936,7 @@ def train_small(torch, g, root, where, fault=None):
     from repro_torch.gnn import models as gm
     from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
     from repro_torch.core.tree import tree_leaves
-    cfg = dict(TRAIN_SMALL)
+    cfg = dict(small)
     n_v, row_dim, n_batches = (cfg.pop("vertices"), cfg.pop("row_dim"),
                                cfg.pop("batches"))
     store = FeatureStore(os.path.join(root, f"f_{where}_{fault}"), n_v,
@@ -3667,14 +3775,281 @@ def phase_faults(torch, dev, counters, l_ref, smi):
     return report
 
 
+def writeback_probe(torch, records, cow):
+    """Phase 12 a-b's probe for ``counted_train``: on the counted trainer,
+    record every ``(ids, delta)`` that reaches the feature cache's
+    ``apply_delta`` (and the wall seconds it takes), count the write
+    leg's events (the dirty rows demotions flush, the combined tickets the
+    write combiner releases), and count the copy-on-write tier updates of
+    all three tables' caches (``_device_set``, ``_host_copy``: calls,
+    bytes, host ms).  Reads the store's rows before the counted run; its
+    ``finish`` adds the three tables' write-back, cache and IO stats and
+    the counters to the report."""
+    import numpy as np
+    leg = {"dirty_demotions": 0, "combined_tickets": 0,
+           "apply_delta_calls": 0, "apply_delta_s": 0.0,
+           "delta_bytes": 0, "events": []}
+    start = {}
+
+    def probe(tr):
+        cache = tr.cache
+        start["rows"] = tr.store.read_rows(np.arange(tr.store.n_rows))
+        apply_delta, demoted = cache.apply_delta, cache._flush_demoted
+        submit, flush = cache._write_back_submit, cache.flush
+
+        def apply_rec(ids, delta, wait=True):
+            d = np.array(delta.cpu() if hasattr(delta, "cpu") else delta,
+                         np.float32)
+            records.append((np.array(ids), d))
+            t0 = time.perf_counter()
+            out = apply_delta(ids, delta, wait=wait)
+            leg["apply_delta_s"] += time.perf_counter() - t0
+            leg["apply_delta_calls"] += 1
+            leg["delta_bytes"] += d.nbytes
+            return out
+
+        # the order of the write leg's events: "d<n>" a demotion that
+        # flushed n dirty rows, "c<n>" a combined ticket of n rows, "F" a
+        # flush barrier (the combiner drains into it)
+        def demoted_rec(ids):
+            n, virt = demoted(ids)
+            leg["dirty_demotions"] += n
+            if n:
+                leg["events"].append(f"d{n}")
+            return n, virt
+
+        def submit_rec(ids, rows, tag):
+            if tag == "flush-combine":
+                leg["combined_tickets"] += 1
+                leg["events"].append(f"c{len(ids)}")
+            return submit(ids, rows, tag)
+
+        def flush_rec(*a, **kw):
+            leg["events"].append("F")
+            return flush(*a, **kw)
+        cache.apply_delta, cache._flush_demoted = apply_rec, demoted_rec
+        cache._write_back_submit, cache.flush = submit_rec, flush_rec
+        tables = (("features", cache), ("momentum", tr.mom_cache),
+                  ("adam", tr.adam_cache))
+        for name, c in tables:
+            for fn, tier in (("_device_set", "device_tier"),
+                             ("_host_copy", "host_tier")):
+                entry = cow.setdefault(f"{name}.{fn}", {
+                    "calls": 0, "bytes": 0, "host_ms": 0.0,
+                    "tier_bytes": 0})
+
+                def timed(*a, _f=getattr(c, fn), _e=entry, _c=c, _t=tier):
+                    t0 = time.perf_counter()
+                    out = _f(*a)
+                    _e["host_ms"] += (time.perf_counter() - t0) * 1e3
+                    _e["calls"] += 1
+                    _e["tier_bytes"] = getattr(_c, _t).nbytes
+                    _e["bytes"] += _e["tier_bytes"]
+                    return out
+                setattr(c, fn, timed)
+
+        def finish(tr, out, report):
+            report["writeback"] = out["writeback"]
+            report["tables"] = {
+                name: {"cache": {k: v for k, v in c.stats()._values()
+                                 .items() if not k.startswith("wall")},
+                       "io": {k: v for k, v in c.io.stats.snapshot()
+                              ._values().items()
+                              if not k.startswith("wall")},
+                       "n_dirty_after_flush": c.n_dirty}
+                for name, c in tables}
+            report["io_by_class"] = out["io"]["by_class"]
+            leg["flush_barriers"] = out["writeback"]["flushes"] - 1
+            leg["through_rows"] = out["writeback"]["write_through_rows"]
+            report["write_leg"] = dict(leg)
+        return finish
+    return probe, start
+
+
+def writeback_interleaving(torch, dev, counters):
+    """Phase 12 d: ``writeback_compare.card_and_cpu`` at ``WRITEBACK_SEQ``
+    under build/, with the kernels' launches it made."""
+    import tempfile
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from writeback_compare import card_and_cpu
+    before = [m.launches for m in counters]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        counts = card_and_cpu(d, dev, **WRITEBACK_SEQ)
+    torch.cuda.synchronize()
+    launches = {k: m.launches - b for k, m, b in
+                zip(("K2", "K3", "K1"), counters, before)}
+    if launches["K1"] < 1 or launches["K2"] < 1:
+        raise AssertionError(f"the card cache's interleaving launched K1 or "
+                             f"K2 no time: {launches}")
+    return {"sequence": WRITEBACK_SEQ, "ops": counts,
+            "identical": ["every gather", "the flushed stores",
+                          "the caches' state after every operation"],
+            "launches": launches, "s": time.perf_counter() - t0}
+
+
+def writeback_small(torch, dev):
+    """Phase 12 c: WRITEBACK_SMALL on the card and on the CPU over stores
+    made alike: sampled batches, write-back stats, cache and IO stats and
+    virtual_s identical less what the prefetch operator's thread timing
+    decides (held by ``prefetch_invariants`` on each); losses,
+    parameters and the three stores within phase 5b c's tolerances
+    (``train_small_errors``)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.gnn.graph import synth_graph
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from writeback_compare import (prefetch_invariants,
+                                   without_prefetch_timing)
+    g = synth_graph(WRITEBACK_SMALL["vertices"], 10, skew=1.2, seed=0)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        a, b = (train_small(torch, g, d, w, small=WRITEBACK_SMALL)
+                for w in (dev, "cpu"))
+    for x, y in zip(a["nodes"], b["nodes"]):
+        if not np.array_equal(x, y):
+            raise AssertionError("the card sampled other batches than the "
+                                 "CPU (write leg)")
+    if len(a["nodes"]) != WRITEBACK_SMALL["batches"]:
+        raise AssertionError("the reduced write-leg run sampled "
+                             f"{len(a['nodes'])} batches")
+    for out in (a["out"], b["out"]):
+        prefetch_invariants(out)
+    ca, cb = (without_prefetch_timing(x["out"]) for x in (a, b))
+    for k in ("cache", "io", "writeback"):
+        if ca[k] != cb[k]:
+            raise AssertionError(f"write leg {k} differs between card and "
+                                 f"CPU: {ca[k]} vs {cb[k]}")
+    errs = train_small_errors(a, b)
+    report = {"config": WRITEBACK_SMALL, "batches": len(a["nodes"]), **errs,
+              "losses_card": a["losses"], "losses_cpu": b["losses"],
+              "writeback": a["out"]["writeback"],
+              "prefetches_card_cpu": (a["out"]["cache"]["prefetches"],
+                                      b["out"]["cache"]["prefetches"]),
+              "identical": ["sampled nodes", "cache", "io", "writeback",
+                            "less writeback_compare.PREFETCH_TIMED"]}
+    if errs["rejected_by"]:
+        raise AssertionError(f"write leg card vs CPU fails the "
+                             f"{errs['rejected_by']} checks: {errs}")
+    return report
+
+
+def phase_writeback(torch, dev, counters, refs, smi):
+    """Phase 12 (see the module docstring): the trainer's write leg at
+    full width on the card.  Returns (the ``writeback`` report, the K2 and
+    K3 ``writeback_backward_layer1`` kernel rows)."""
+    import numpy as np
+    from repro_torch.core.iostack import FeatureStore
+    from repro_torch.gnn.graph import make_dataset
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from writeback_compare import lost_update_errors
+    g_ops, s_ops, l_ops = counters
+    g_ref = refs[0]
+    t_phase = time.perf_counter()
+    N, D = TRAIN_N_PAD, TRAIN_ROW_DIM
+    E1 = TRAIN_BATCH * TRAIN_FANOUTS[0] * TRAIN_FANOUTS[1]
+    keys = {"K2": ("K2", "backward", (N, D), E1),
+            "K3": ("K3", "backward", (E1, D), E1)}
+    shutil.rmtree(WRITEBACK_ROOT, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        g, ro, _ = make_dataset("IG", WRITEBACK_ROOT, scale=1e-3)
+        store = FeatureStore(ro.path, ro.n_rows, ro.row_dim, dtype=ro.dtype,
+                             n_shards=ro.n_shards, writable=True)
+        store_s = time.perf_counter() - t0
+        # a: warm-up (K2's and K3's layer-1 backward inputs kept on the
+        # host), then the counted run and its epoch flush
+        records, cow = [], {}
+        probe, start = writeback_probe(torch, records, cow)
+        t0 = time.perf_counter()
+        report, counts, launches, seen = counted_train(
+            torch, dev, g, store, counters,
+            dict(mode="helios", chaos=None, **WRITEBACK_KNOBS), probe,
+            lambda: capture(g_ops, s_ops, keys=set(keys.values())))
+        report["cow"] = {k: dict(v, host_ms_per_batch=v["host_ms"]
+                                 / TRAIN_COUNTED)
+                         for k, v in cow.items()}
+        report["store_s"], report["train_s"] = store_s, \
+            time.perf_counter() - t0
+        n = TRAIN_COUNTED
+        per_step = {k: counts.get(key, 0) / n for k, key in keys.items()}
+        report["layer1_backward_launches_per_step"] = per_step
+        leg = report["write_leg"]
+        log(f"[writeback] a: {report}")
+        # part a's checks fail the phase once parts b-e have run
+        bad = []
+        if launches["K1"] < n:
+            bad.append(f"K1 launched {launches['K1']} times in {n} batches "
+                       "with embeddings")
+        if per_step != {"K2": 1.0, "K3": 1.0}:
+            bad.append(f"the embedding gradient's layer-1 K2/K3 backward "
+                       f"launched {per_step} a step, not once")
+        zero = [k for k in ("dirty_demotions", "combined_tickets",
+                            "flush_barriers", "through_rows") if not leg[k]]
+        if zero:
+            bad.append(f"the write leg's {zero} stayed at 0: {leg}")
+        if report["writeback"]["dirty_after_flush"] or any(
+                t["n_dirty_after_flush"] for t in report["tables"].values()):
+            bad.append("dirty rows left after the epoch flush")
+        # b: no lost update on the card
+        t0 = time.perf_counter()
+        final = store.read_rows(np.arange(store.n_rows))
+        biggest = max(range(len(records)),
+                      key=lambda k: float(np.abs(records[k][1]).max()))
+        err, control = lost_update_errors(start["rows"], final, records,
+                                          biggest)
+        report["lost_update"] = {
+            "records": len(records), "max_abs_err": err,
+            "tolerance": LOST_UPDATE_ATOL, "dropped_delta_control": control,
+            "rows_touched": int(len(np.unique(np.concatenate(
+                [r[0] for r in records])))),
+            "s": time.perf_counter() - t0}
+        del final, start["rows"], records
+        if not (report["lost_update"]["records"] == n
+                and err <= LOST_UPDATE_ATOL
+                and control > 100 * LOST_UPDATE_ATOL):
+            raise AssertionError(f"lost update: {report['lost_update']}")
+        log(f"[writeback] b: {report['lost_update']}")
+        # c: the reduced trainer, card against CPU
+        t0 = time.perf_counter()
+        report["cpu"] = writeback_small(torch, dev)
+        report["cpu"]["s"] = time.perf_counter() - t0
+        log(f"[writeback] c: {report['cpu']}")
+        # d: one interleaving with the device tier on the card
+        report["interleaving"] = writeback_interleaving(torch, dev, counters)
+        log(f"[writeback] d: {report['interleaving']}")
+    finally:
+        shutil.rmtree(WRITEBACK_ROOT, ignore_errors=True)
+    # e: K2 and K3 at their layer-1 embedding-backward shapes
+    rows = {}
+    for k, key in keys.items():
+        if key not in seen:
+            raise AssertionError(f"no {key} call was recorded in the "
+                                 f"warm-up: {sorted(seen)}")
+        cap = seen.pop(key)
+        args = [t.to(dev) for t in cap[:2]]
+        entry = (dict(max_abs_err=0.0, **k2_entry(torch, g_ops, g_ref, *args))
+                 if k == "K2" else
+                 k3_entry(torch, s_ops, *args, cap[2],
+                          "writeback: layer-1 gather backward"))
+        rows[k] = dict(launches_per_step=per_step[k], **entry)
+        del args, cap
+        torch.cuda.empty_cache()
+        log(f"[writeback] e: {k} writeback_backward_layer1 {rows[k]}")
+    report["kernels"] = rows
+    report.update(card=smi, phase_s=time.perf_counter() - t_phase)
+    if bad:
+        raise AssertionError("phase 12 a: " + "; ".join(bad))
+    return report, rows
+
+
 def main(argv):
     import torch
     mode = argv[0] if argv[:1] in (["--gnn-kernels"], ["--lm-kernels"],
-                                   ["--faults"]) else None
+                                   ["--faults"], ["--writeback"]) else None
     gnn_only, lm_only = mode == "--gnn-kernels", mode == "--lm-kernels"
-    faults_only = mode == "--faults"
+    faults_only, writeback_only = mode == "--faults", mode == "--writeback"
     pkg = os.path.abspath(argv[1]) if mode and len(argv) > 1 \
-        and not faults_only else SRC
+        and not (faults_only or writeback_only) else SRC
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available; nothing was run")
         return 2
@@ -3713,7 +4088,8 @@ def main(argv):
     libs = build.build_all(("flash_attention", "flash_attention_bwd",
                             "rwkv_scan", "rwkv_scan_bwd") if lm_only else
                            ("cache_lookup", "gather", "segment_agg")
-                           if faults_only else build.KERNELS)
+                           if faults_only or writeback_only
+                           else build.KERNELS)
     log(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         if hasattr(build, "ptxas_report"):
@@ -3732,7 +4108,7 @@ def main(argv):
     # such a tree has no hd-256 tensor-core kernel to check either, and a
     # tree before K5's clusters (``--lm-kernels``) no carry or chunk kernel
     for lib, kernel in NO_SPILL if hasattr(build, "ptxas_report") \
-            and not faults_only else ():
+            and not (faults_only or writeback_only) else ():
         if lib == "rwkv_scan_bwd" and not hasattr(wkv_ops, "BWD_CLUSTER"):
             continue
         found = {n: r for n, r in build.ptxas_report(lib).items()
@@ -3766,6 +4142,16 @@ def main(argv):
         faults = phase_faults(torch, dev, (g_ops, s_ops, l_ops), l_ref, smi)
         print(smi)
         print(json.dumps({"faults": faults, "card": smi}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    if writeback_only:  # phase 12 alone
+        writeback, _ = phase_writeback(torch, dev, (g_ops, s_ops, l_ops),
+                                       (g_ref, s_ref, l_ref), smi)
+        print(smi)
+        print(json.dumps({"writeback": writeback, "card": smi}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
@@ -4033,6 +4419,13 @@ def main(argv):
     faults = phase_faults(torch, dev, (g_ops, s_ops, l_ops), l_ref, smi)
     log(f"[faults] phase in {faults['phase_s']:.1f} s")
 
+    # --- 12. the write leg: trainable embeddings at full width -------------
+    writeback, wb_rows = phase_writeback(
+        torch, dev, (g_ops, s_ops, l_ops), (g_ref, s_ref, l_ref), smi)
+    by_name["gather_rows"]["writeback_backward_layer1"] = wb_rows["K2"]
+    by_name["segment_sum"]["writeback_backward_layer1"] = wb_rows["K3"]
+    log(f"[writeback] phase in {writeback['phase_s']:.1f} s")
+
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"server": server, "card": smi}))
@@ -4042,6 +4435,7 @@ def main(argv):
     print(json.dumps({"lm_train": lm_train, "card": smi}))
     print(json.dumps({"dryrun": dry, "card": smi}))
     print(json.dumps({"faults": faults, "card": smi}))
+    print(json.dumps({"writeback": writeback, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

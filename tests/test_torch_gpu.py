@@ -424,6 +424,23 @@ def test_gpu_torn_flush_of_card_rows_replays(tmp_path):
     c.close()
 
 
+def test_gpu_cache_write_interleaving(tmp_path):
+    """``chip_smoke.py`` phase 12 d: one random interleaving of the cache's
+    read, write, refresh, prefetch, flush and invalidate legs
+    (``tests/writeback_compare.py``) on a cache whose device tier is on
+    the card (K1's lookup, the pinned host tier, K2 in ``_device_rows``)
+    beside the same sequence on the CPU: every gather equals the shadow
+    and the other cache bit for bit, the caches' state is equal after
+    every operation, and the flushed stores reproduce the shadow."""
+    from writeback_compare import card_and_cpu
+    dev = _cuda()
+    before = (lookup_ops.launches, gather_ops.launches)
+    counts = card_and_cpu(str(tmp_path), dev, seed=1000, policy="writeback",
+                          combine=16, mode="helios")
+    assert sum(counts.values()) > 0
+    assert lookup_ops.launches > before[0] and gather_ops.launches > before[1]
+
+
 def test_gpu_server_matches_cpu(store):
     """A small server on the card against the same server on the CPU:
     the same requests answered, the same virtual latencies, logits within

@@ -23,7 +23,9 @@ def _sources():
            os.path.join(ROOT, "examples", "serve_decode_torch.py"),
            os.path.join(ROOT, "examples", "train_llm_tiered_torch.py"),
            os.path.join(ROOT, "examples", "quickstart_torch.py"),
-           os.path.join(ROOT, "examples", "serve_gnn_torch.py")]
+           os.path.join(ROOT, "examples", "serve_gnn_torch.py"),
+           # the write leg's checks, which chip_smoke.py imports
+           os.path.join(ROOT, "tests", "writeback_compare.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -61,6 +63,7 @@ def test_port_sources_exist():
     assert os.path.exists(srcs[3]), "the port's LM training example is missing"
     assert os.path.exists(srcs[4]), "the port's quickstart is missing"
     assert os.path.exists(srcs[5]), "the port's GNN serving example is missing"
+    assert os.path.exists(srcs[6]), "the write leg's checks are missing"
     for mod in ("models/moe", "models/rglru", "models/encdec",
                 "models/frontends", "data/tokens", "launch/train",
                 "distributed/sharding", "launch/mesh", "launch/roofline",

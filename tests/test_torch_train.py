@@ -16,7 +16,11 @@ What must be identical and what agrees within a tolerance:
     gradients carried through AdamW);
   * trainable embeddings: the store's rows after the epoch flush within
     atol 1e-4 of the reference's (sparse Adam divides each row's update by
-    its own gradient scale, which lifts the last-bit differences);
+    its own gradient scale, which lifts the last-bit differences), in
+    ``helios-nopipe`` and ``helios`` at ``prefetch_depth=1`` under each
+    write-leg knob (``WRITE_CASES``); at ``prefetch_depth=2`` no update is
+    lost: each row ends at its start value plus the deltas that reached
+    ``apply_delta``;
   * checkpoints: a trainer state saved by either package restores in the
     other to identical arrays.
 """
@@ -44,6 +48,8 @@ from repro_torch.gnn.sampling import NeighborSampler  # noqa: E402
 from repro_torch.gnn.train import OutOfCoreGNNTrainer  # noqa: E402
 from repro_torch.gnn.train import TrainerConfig  # noqa: E402
 from repro_torch.train import optim  # noqa: E402
+from writeback_compare import (lost_update_errors,  # noqa: E402
+                               prefetch_invariants, without_prefetch_timing)
 
 N_V, ROW_DIM, HIDDEN, BATCH, FANOUTS, N_CLASSES = 2000, 16, 16, 32, (4, 3), 7
 N_BATCHES = 20
@@ -267,12 +273,13 @@ def _record(tr):
 
 
 def _run_pair(tmp_path, graphs, n_batches=N_BATCHES, writable=False,
-              params=None, **kw):
+              params=None, probe=None, **kw):
     """The reference's trainer and the port's (on the CPU, started from
     the reference's parameters) over identically seeded stores.  With a
     ``params`` dict, its "start", "ref" and "port" get the parameters
     both started from and each package's after training, as the port's
-    tensors."""
+    tensors.  ``probe(trainer)``, where given, is called on each trainer
+    before it trains."""
     rg, tg = graphs
     rs = RefStore(str(tmp_path / "ref"), N_V, ROW_DIM, n_shards=4,
                   create=True, rng_seed=3, writable=writable)
@@ -281,6 +288,8 @@ def _run_pair(tmp_path, graphs, n_batches=N_BATCHES, writable=False,
     with RefTrainer(rg, rs, RefConfig(**TRAIN, **kw)) as rt:
         P = _np_tree(rt.state["params"])
         rseen = _record(rt)
+        if probe is not None:
+            probe(rt)
         rout = rt.train(n_batches)
         rlog = list(rt.metrics_log)
         if params is not None:
@@ -292,6 +301,8 @@ def _run_pair(tmp_path, graphs, n_batches=N_BATCHES, writable=False,
         p = models.params_from_numpy(P, "cpu")
         tr.state = {"params": p, "opt": tr.opt.init(p)}
         tseen = _record(tr)
+        if probe is not None:
+            probe(tr)
         tout = tr.train(n_batches)
         tlog = list(tr.metrics_log)
         if params is not None:
@@ -409,6 +420,149 @@ def test_trainable_embeddings_match_reference(tmp_path, graphs, opt):
         b = FeatureStore(ts.path + suffix, N_V, ROW_DIM, n_shards=4)
         np.testing.assert_allclose(b.read_rows(ids), a.read_rows(ids),
                                    atol=1e-4)
+
+
+# the write leg's knobs, each a ``TrainerConfig`` knob of both packages,
+# and the counter each case exists for (``_write_counters``): online
+# placement refreshes every 2 batches at the default 5%/10% cache, so
+# demotions evict dirty embedding rows (79 over 12 batches); a combiner of
+# 32 rows takes the demotion batches smaller than that and releases a
+# combined ticket (none at 16 or 96: the batches either bypass it or
+# never fill it)
+WRITE_CASES = {
+    "writethrough": (dict(write_policy="writethrough"), "through_rows"),
+    "combine": (dict(cache_policy="online", refresh_every=2,
+                     write_combine_rows=32), "combined_tickets"),
+    "flush_every": (dict(embedding_flush_every=3), "flush_barriers"),
+    "online": (dict(cache_policy="online", refresh_every=2,
+                    prefetch_rows=64), "dirty_demotions"),
+}
+EMBEDDINGS = dict(train_embeddings=True, embedding_momentum=0.9,
+                  embedding_adam=0.99)
+
+
+def _write_counters(counters):
+    """A probe for ``_run_pair`` that counts, on each trainer's feature
+    cache, the dirty rows its demotions flush and the combined tickets the
+    write combiner releases (instance attributes only); one dict per
+    trainer is appended to ``counters``."""
+    def probe(tr):
+        c = {"dirty_demotions": 0, "combined_tickets": 0}
+        counters.append(c)
+        demoted, submit = tr.cache._flush_demoted, tr.cache._write_back_submit
+
+        def demoted_rec(ids):
+            n, virt = demoted(ids)
+            c["dirty_demotions"] += n
+            return n, virt
+
+        def submit_rec(ids, rows, tag):
+            c["combined_tickets"] += tag == "flush-combine"
+            return submit(ids, rows, tag)
+        tr.cache._flush_demoted = demoted_rec
+        tr.cache._write_back_submit = submit_rec
+    return probe
+
+
+def _store_rows(root, n_v, suffixes, Store):
+    return [Store(root + sfx, n_v, ROW_DIM, n_shards=4).read_rows(
+        np.arange(n_v)) for sfx in suffixes]
+
+
+@pytest.mark.parametrize("case", list(WRITE_CASES))
+@pytest.mark.parametrize("mode", ["helios-nopipe", "helios"])
+def test_embedding_write_leg_matches_reference(tmp_path, graphs, mode,
+                                               case):
+    """Trainable embeddings (momentum 0.9, sparse Adam b2 0.99) through
+    the deep pipeline's split-phase write-back (``helios``, one write
+    ticket in flight across batches) and the serial one, at
+    ``prefetch_depth=1``, under write-through, the write combiner, flush
+    barriers every 3 batches, and online placement with prefetch whose
+    refreshes demote dirty rows: write-back, cache and IO stats and
+    ``virtual_s`` identical (in ``helios`` with prefetch, less what
+    ``writeback_compare.PREFETCH_TIMED`` names, held by
+    ``prefetch_invariants``), losses
+    within rtol 1e-4, the feature, momentum and Adam stores within atol
+    1e-4 after the epoch flush, and the counter the case exists for above
+    0 in both packages alike."""
+    knobs, counter = WRITE_CASES[case]
+    counters = []
+    (rout, rlog, _, rs), (tout, tlog, _, ts) = _run_pair(
+        tmp_path, graphs, n_batches=12, writable=True, mode=mode,
+        prefetch_depth=1, probe=_write_counters(counters), **EMBEDDINGS,
+        **knobs)
+    assert tout["writeback"] == rout["writeback"]
+    if mode == "helios" and knobs.get("prefetch_rows"):
+        for out in (rout, tout):
+            prefetch_invariants(out)
+        rout, tout = (without_prefetch_timing(o) for o in (rout, tout))
+    assert tout["cache"] == rout["cache"] and tout["io"] == rout["io"]
+    assert tout["virtual_s"] == rout["virtual_s"]
+    np.testing.assert_allclose([m["loss"] for m in tlog],
+                               [m["loss"] for m in rlog], rtol=1e-4)
+    sfx = ("", "_momentum", "_adam")
+    for a, b in zip(_store_rows(rs.path, N_V, sfx, RefStore),
+                    _store_rows(ts.path, N_V, sfx, FeatureStore)):
+        np.testing.assert_allclose(b, a, atol=1e-4)
+    wb = tout["writeback"]
+    counters[0].update(through_rows=rout["writeback"]["write_through_rows"],
+                       flush_barriers=rout["writeback"]["flushes"] - 1)
+    counters[1].update(through_rows=wb["write_through_rows"],
+                       flush_barriers=wb["flushes"] - 1)
+    assert counters[1] == counters[0]
+    assert counters[1][counter] > 0, counters
+    assert wb["dirty_after_flush"] == 0
+
+
+# float32: a row's updates are added one at a time, each rounding to half
+# an ulp of the row (|row| < 8 here: 2.4e-7), over at most 12 updates; the
+# dropped delta in the control is far above it
+LOST_UPDATE_ATOL = 1e-5
+
+
+def test_embedding_no_lost_update_at_depth_two(tmp_path, graphs,
+                                               monkeypatch):
+    """``helios`` at the trainer's default ``prefetch_depth=2`` with every
+    write-leg knob on: two batches share the sampler's rng and their
+    updates interleave, so which rows each batch touches follows the
+    threads, in the reference too.  Held instead, in both packages: every
+    ``(ids, delta)`` that reached the feature cache's ``apply_delta`` is
+    recorded, and after the epoch flush every row of the store equals its
+    start value plus the sum of its recorded deltas within
+    ``LOST_UPDATE_ATOL``; with the largest recorded delta dropped from
+    the expectation the check fails."""
+    rg, tg = graphs
+    cfg = dict(TRAIN, mode="helios", prefetch_depth=2, **EMBEDDINGS,
+               cache_policy="online", refresh_every=2, prefetch_rows=64,
+               write_combine_rows=32, embedding_flush_every=3)
+    for name, Store, Trainer, Config, g in (
+            ("ref", RefStore, RefTrainer, RefConfig, rg),
+            ("port", FeatureStore, OutOfCoreGNNTrainer, TrainerConfig, tg)):
+        extra = {} if name == "ref" else {"device": "cpu"}
+        store = Store(str(tmp_path / name), N_V, ROW_DIM, n_shards=4,
+                      create=True, rng_seed=3, writable=True)
+        start = store.read_rows(np.arange(N_V)).copy()
+        records = []
+        with Trainer(g, store, Config(**cfg, **extra)) as tr:
+            apply_delta = tr.cache.apply_delta
+
+            def rec(ids, delta, wait=True, apply_delta=apply_delta,
+                    records=records):
+                records.append((np.array(ids), np.array(
+                    delta.cpu().numpy() if hasattr(delta, "cpu") else delta,
+                    np.float32)))
+                return apply_delta(ids, delta, wait=wait)
+            monkeypatch.setattr(tr.cache, "apply_delta", rec)
+            out = tr.train(N_BATCHES)
+        assert out["writeback"]["dirty_after_flush"] == 0
+        assert out["writeback"]["flushes"] > 1
+        assert len(records) == N_BATCHES
+        final = _store_rows(store.path, N_V, ("",), Store)[0]
+        biggest = max(range(len(records)),
+                      key=lambda k: np.abs(records[k][1]).max())
+        err, control = lost_update_errors(start, final, records, biggest)
+        assert err <= LOST_UPDATE_ATOL, (name, err)
+        assert control > 100 * LOST_UPDATE_ATOL, (name, control)
 
 
 @pytest.mark.parametrize("opt", ["momentum", "adam"])

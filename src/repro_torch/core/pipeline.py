@@ -79,10 +79,41 @@ class PipelineExecutor:
 
     # ------------------------------------------------------------------
     def _run_op(self, op: Operator, ctx: dict, batch_idx: int, ready_at: float):
+        tr = _trace.TRACER
+        if tr is not None and tr.enabled:
+            return self._run_op_traced(tr, op, ctx, batch_idx, ready_at)
         t0 = time.perf_counter()
         out = op.fn(ctx)
+        self._account(op, ctx, time.perf_counter() - t0, ready_at)
+        return out
+
+    def _run_op_traced(self, tr, op: Operator, ctx: dict, batch_idx: int,
+                       ready_at: float):
+        """``_run_op`` inside an open ``pipe.<op>`` span, so every span the
+        operator opens on this thread names it as parent.  The span gets
+        the operator's wall and virtual interval when it returns; one that
+        raises leaves no span."""
+        cm = tr.span(f"pipe.{op.name}", track=op.resource, cat="pipe",
+                     args={"batch": batch_idx, "resource": op.resource,
+                           "deps": list(op.deps)})
+        sp = cm.__enter__()
+        t0 = time.perf_counter()
+        try:
+            out = op.fn(ctx)
+        except BaseException:
+            tr.drop(sp)
+            raise
         t1 = time.perf_counter()
-        wall = t1 - t0
+        end, virt = self._account(op, ctx, t1 - t0, ready_at)
+        cm.__exit__(None, None, None)
+        sp.t0, sp.t1 = t0 - tr.epoch, t1 - tr.epoch
+        sp.set_virtual(end - virt, end)
+        return out
+
+    def _account(self, op: Operator, ctx: dict, wall: float,
+                 ready_at: float) -> tuple:
+        """Book one operator call: its stage timing and its slot on the
+        virtual clock.  Returns ``(virtual end, virtual seconds)``."""
         virt = op.virtual_cost(ctx) if op.virtual_cost else wall
         with self._lock:
             st = self.timings[op.name]
@@ -94,14 +125,8 @@ class PipelineExecutor:
             self.virtual_end = max(self.virtual_end, end)
             self.resource_busy[op.resource] = (
                 self.resource_busy.get(op.resource, 0.0) + virt)
-        tr = _trace.TRACER
-        if tr is not None and tr.enabled:
-            tr.record(f"pipe.{op.name}", t0, t1, track=op.resource, cat="pipe",
-                      v0=end - virt, v1=end,
-                      args={"batch": batch_idx, "resource": op.resource,
-                            "deps": list(op.deps)})
         ctx[f"__end_{op.name}"] = end
-        return out
+        return end, virt
 
     def _run_batch(self, batch_idx: int, ctx: dict, start_at: float) -> float:
         """Execute one mini-batch's operator DAG; returns virtual end time."""

@@ -12,6 +12,7 @@ import numpy as np
 
 from repro_torch.core.rng import draw_unique  # noqa: F401  (seed-draw re-export)
 from repro_torch.gnn.graph import CSRGraph
+from repro_torch.obs import trace as _trace
 
 
 @dataclass
@@ -56,8 +57,22 @@ class NeighborSampler:
     def sample(self, seeds: np.ndarray) -> MiniBatch:
         """Layered sampling; returns blocks outer-hop-first for aggregation
         inner->outer (GraphSAGE computes hop-(k) from hop-(k+1) frontier).
-        ``seeds`` must be unique (sampled without replacement)."""
+        ``seeds`` must be unique (sampled without replacement).  Where a
+        tracer is installed, ``sample.draw`` times the hops' neighbour
+        draws and ``sample.relabel`` the node array and block positions."""
         seeds = seeds.astype(np.int64)
+        with _trace.phase("sample.draw") as sp:
+            hop_edges = self._draw(seeds)
+            if sp is not None:
+                sp.args = {"edges": sum(len(src) for src, _ in hop_edges)}
+        with _trace.phase("sample.relabel") as sp:
+            mb = self._relabel(seeds, hop_edges)
+            if sp is not None:
+                sp.args = {"nodes": int(np.count_nonzero(mb.node_mask))}
+        return mb
+
+    def _draw(self, seeds: np.ndarray) -> list:
+        """Each hop's ``(src, dst)`` global ids, from the seeds outwards."""
         frontier = seeds
         hop_edges = []
         for fanout in self.fanouts:
@@ -66,7 +81,11 @@ class NeighborSampler:
             src = nbr.reshape(-1)
             hop_edges.append((src, dst))
             frontier = np.unique(src)
+        return hop_edges
 
+    def _relabel(self, seeds: np.ndarray, hop_edges: list) -> MiniBatch:
+        """The padded node array (seeds first) and each hop's block of
+        positions into it."""
         # node array: seeds first, then every other touched vertex
         touched = np.unique(np.concatenate([seeds] + [s for s, _ in hop_edges]))
         rest = np.setdiff1d(touched, seeds, assume_unique=False)

@@ -317,7 +317,19 @@ class OutOfCoreGNNTrainer:
             self.cache.lookup_planned(ctx["pending"])
 
         def op_io_complete(ctx):
-            ctx["out"] = self.cache.complete_planned(ctx["pending"])
+            # the wait for the batch's reads, apart from landing them (the
+            # tickets are futures: complete_planned's own wait then returns
+            # at once)
+            pg = ctx["pending"]
+            with _trace.phase("pipe.io_complete.wait", batch=ctx["batch"],
+                              storage_rows=pg.n_storage,
+                              remote_rows=pg.n_remote):
+                for ticket in (pg.rticket, pg.ticket):
+                    if ticket is not None:
+                        ticket.wait()
+            with _trace.phase("pipe.io_complete.land", batch=ctx["batch"],
+                              rows=pg.n_storage + pg.n_remote):
+                ctx["out"] = self.cache.complete_planned(pg)
 
         def op_cache_refresh(ctx):
             # asynchronous tier migration on the io resource: placement
@@ -358,17 +370,21 @@ class OutOfCoreGNNTrainer:
 
         def op_train(ctx):
             src, dst, em, labels = ctx["tensors"]
-            if cfg.train_embeddings:
-                self.state, m, fgrad = self.step_fn(self.state, ctx["feats"],
-                                                    src, dst, em, labels)
-                # node_mask is a prefix (the sampler puts every real node
-                # first): only those rows cross to the host
-                n_real = int(ctx["mb"].node_mask.sum())
-                ctx["feat_grad"] = _host(fgrad[:n_real])
-            else:
-                self.state, m = self.step_fn(self.state, ctx["feats"], src,
-                                             dst, em, labels)
-            ctx["metrics"] = {k: float(v) for k, v in m.items()}
+            # the host's dispatch of the step, then its wait for the
+            # device: the metrics (and the feature gradient) to the host
+            with _trace.phase("pipe.train.dispatch", batch=ctx["batch"],
+                              seeds=len(ctx["mb"].seeds)):
+                res = self.step_fn(self.state, ctx["feats"], src, dst, em,
+                                   labels)
+            self.state, m = res[0], res[1]
+            with _trace.phase("pipe.train.sync", batch=ctx["batch"],
+                              values=len(m)):
+                if cfg.train_embeddings:
+                    # node_mask is a prefix (the sampler puts every real
+                    # node first): only those rows cross to the host
+                    n_real = int(ctx["mb"].node_mask.sum())
+                    ctx["feat_grad"] = _host(res[2][:n_real])
+                ctx["metrics"] = {k: float(v) for k, v in m.items()}
             self.metrics_log.append(ctx["metrics"])
 
         def op_embedding_writeback(ctx):
@@ -545,7 +561,7 @@ class OutOfCoreGNNTrainer:
             # the seed stream reproducible in every pipeline mode
             rng = np.random.default_rng([cfg.seed, 0x5EED, i])
             seeds = draw_unique(rng, self.g.n_vertices, cfg.batch_size)
-            return {"seeds": seeds}
+            return {"seeds": seeds, "batch": i}
 
         try:
             out = pipe.run(make_ctx, n_batches)
@@ -624,14 +640,7 @@ class OutOfCoreGNNTrainer:
                      "bubble_frac": out["overlap"]["bubble_frac"]}
         tr = _trace.TRACER
         if tr is not None and tr.enabled:
-            # stats publish into the obs metrics registry (gauges), and
-            # the traced span tree yields the full per-phase attribution
-            io_snap.publish("train.io")
-            cs_snap.publish("train.cache")
-            qs = getattr(self.io, "qwait_summary", None)
-            if qs is not None:
-                from repro_torch.obs.metrics import publish_qwait
-                publish_qwait("train.io.qwait", qs())
+            # the traced span tree yields the per-phase attribution
             out["obs"] = _analyze.analyze_epoch(tr,
                                                 makespan=out["virtual_s"])
         if cfg.train_embeddings:

@@ -166,17 +166,3 @@ class Registry:
 
 #: Process-global registry; stats publishers use this by default.
 REGISTRY = Registry()
-
-
-def publish_qwait(prefix: str, qwait_summary: dict,
-                  registry: Registry | None = None) -> None:
-    """Publish an engine's per-stream-class queue-delay summaries (the
-    ``engine.qwait_summary()`` dict: StreamClass name -> Histogram
-    ``summary()``) as ``<prefix>.<CLASS>.<stat>`` gauges.  The engines keep
-    their qwait histograms standalone (one engine's DEMAND delays must not
-    blend into another's), so this is the explicit bridge into a shared
-    registry — see docs/streams.md for the class taxonomy."""
-    reg = registry if registry is not None else REGISTRY
-    for cls_name, summ in qwait_summary.items():
-        for stat, val in summ.items():
-            reg.gauge(f"{prefix}.{cls_name}.{stat}").set(val)

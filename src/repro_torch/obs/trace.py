@@ -33,6 +33,7 @@ changes.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import itertools
 import os
 import threading
@@ -170,6 +171,14 @@ class Tracer:
                 break
         self.spans.append(span)
 
+    def drop(self, span):
+        """Take ``span``, opened by :meth:`span` on this thread, off the
+        thread's stack without keeping it: work that raised and leaves no
+        span."""
+        st = self._stack()
+        while st and st.pop() is not span:
+            pass
+
     def record(self, name, t0, t1, track=None, cat=None, parent=None,
                v0=None, v1=None, args=None):
         """Append a closed span directly (for sites that measured their own
@@ -224,6 +233,16 @@ def uninstall():
     tr = TRACER
     TRACER = None
     return tr
+
+
+def phase(name, **args):
+    """A ``phase`` span, child of the span open on this thread, where a
+    tracer is installed; else a context that does nothing and yields
+    ``None``.  Args known only after the work go on the yielded span."""
+    tr = TRACER
+    if tr is not None and tr.enabled:
+        return tr.span(name, cat="phase", args=args)
+    return contextlib.nullcontext()
 
 
 def _atexit_export():  # pragma: no cover - exercised via subprocess in tests

@@ -59,6 +59,16 @@ def _names(tracer):
     return collections.Counter(s.name for s in tracer.spans)
 
 
+# the port's phase spans inside the trainer's operators, which the
+# reference does not have: each opens inside its operator's span
+PORT_PHASES = {"pipe.io_complete.wait": "pipe.io_complete",
+               "pipe.io_complete.land": "pipe.io_complete",
+               "pipe.train.dispatch": "pipe.train",
+               "pipe.train.sync": "pipe.train",
+               "sample.draw": "pipe.sample",
+               "sample.relabel": "pipe.sample"}
+
+
 # ---------------------------------------------------------------------------
 # stats snapshots and deltas
 # ---------------------------------------------------------------------------
@@ -341,9 +351,19 @@ def test_traced_chaos_epoch_matches_reference(epochs):
     """Both packages' traced epochs under ``HELIOS_CHAOS`` at depth 1:
     the same pipeline, cache and engine spans, as many of each, the same
     ``ft.retry.r`` instants (retries above 0), the same per-batch virtual
-    critical path and summed time (rel 1e-12) and the same coverage."""
+    critical path and summed time (rel 1e-12) and the same coverage.  The
+    port's phase spans (``PORT_PHASES``) are left out of the count, and
+    each sits once in every batch's operator span."""
     (rtr, rout, _), (ttr, tout, _) = epochs["ref_chaos"], epochs["port_chaos"]
-    assert _names(ttr) == _names(rtr)
+    names = _names(ttr)
+    by_id = {s.sid: s for s in ttr.spans}
+    for name, op in PORT_PHASES.items():
+        del names[name]
+        in_ops = [by_id[s.parent] for s in ttr.spans if s.name == name
+                  and s.parent in by_id and by_id[s.parent].name == op]
+        assert sorted(p.args["batch"] for p in in_ops) == list(range(6)), \
+            name
+    assert names == _names(rtr)
     assert tout["io"]["retries"] == rout["io"]["retries"] > 0
     rret = sorted(json.dumps(e[5], sort_keys=True) for e in rtr.events
                   if e[0] == "ft.retry.r")

@@ -78,17 +78,19 @@ def params_from_numpy(tree, device="cuda"):
     return torch.from_numpy(np.array(tree)).to(dev)
 
 
-def _agg_mean(h, src_pos, dst_pos, edge_mask, n_nodes):
-    """Mean aggregation: for each dst, mean of h[src] over valid edges."""
+def _agg_mean(h, src_pos, dst_pos, edge_mask, n_nodes, n_out):
+    """Mean aggregation: for each dst, mean of h[src] over valid edges.
+    The sums fill all ``n_nodes`` rows; rows ``[0, n_out)`` are returned."""
     w = edge_mask.to(h.dtype)
     msg = gather_rows(h, src_pos) * w[:, None]
-    summed = segment_sum(msg, dst_pos, n_nodes)
-    cnt = segment_sum(w[:, None].contiguous(), dst_pos, n_nodes)[:, 0]
+    summed = segment_sum(msg, dst_pos, n_nodes)[:n_out]
+    cnt = segment_sum(w[:, None].contiguous(), dst_pos, n_nodes)[:n_out, 0]
     return summed / torch.clamp(cnt, min=1.0)[:, None]
 
 
-def _agg_gcn(h, src_pos, dst_pos, edge_mask, n_nodes):
-    """Symmetric-normalised sum (degrees from the sampled block)."""
+def _agg_gcn(h, src_pos, dst_pos, edge_mask, n_nodes, n_out):
+    """Symmetric-normalised sum (degrees from the sampled block), rows
+    ``[0, n_out)`` of the ``n_nodes`` summed."""
     w = edge_mask.to(h.dtype)
     w1 = w[:, None].contiguous()
     deg_dst = segment_sum(w1, dst_pos, n_nodes)
@@ -97,22 +99,30 @@ def _agg_gcn(h, src_pos, dst_pos, edge_mask, n_nodes):
                                    min=1.0)) * \
         torch.rsqrt(torch.clamp(gather_rows(deg_dst, dst_pos)[:, 0], min=1.0))
     msg = gather_rows(h, src_pos) * (w * norm)[:, None]
-    return segment_sum(msg, dst_pos, n_nodes)
+    return segment_sum(msg, dst_pos, n_nodes)[:n_out]
 
 
-def gnn_forward(params, feats, blocks, model: str):
+def gnn_forward(params, feats, blocks, model: str, n_out: int | None = None):
     """feats: (N_pad, F); blocks: list of (src_pos, dst_pos, edge_mask)
-    outer-hop-first.  Applied inner-hop-first (reversed)."""
+    outer-hop-first.  Applied inner-hop-first (reversed).  Returns the last
+    hidden layer, (N_pad, hidden); with ``n_out``, its rows ``[0, n_out)``
+    alone: the last layer's products, bias and ReLU then run on those rows
+    only, after an aggregation that still sums into all N_pad rows (the
+    same K2/K3 calls either way).  Earlier layers are dense: the next
+    layer reads every row."""
     h = feats
     n_nodes = feats.shape[0]
     layer_blocks = list(reversed(blocks))
-    for lp, blk in zip(params["layers"], layer_blocks):
+    last = len(params["layers"]) - 1
+    for i, (lp, blk) in enumerate(zip(params["layers"], layer_blocks)):
         src_pos, dst_pos, edge_mask = blk
+        # h[:n_nodes] is h itself (a full slice adds no op)
+        rows = n_nodes if n_out is None or i < last else n_out
         if model == "sage":
-            nb = _agg_mean(h, src_pos, dst_pos, edge_mask, n_nodes)
-            h = h @ lp["w_self"] + nb @ lp["w_neigh"] + lp["b"]
+            nb = _agg_mean(h, src_pos, dst_pos, edge_mask, n_nodes, rows)
+            h = h[:rows] @ lp["w_self"] + nb @ lp["w_neigh"] + lp["b"]
         else:
-            nb = _agg_gcn(h, src_pos, dst_pos, edge_mask, n_nodes)
+            nb = _agg_gcn(h, src_pos, dst_pos, edge_mask, n_nodes, rows)
             h = nb @ lp["w"] + lp["b"]
         h = torch.relu(h)
     return h
@@ -125,16 +135,16 @@ def make_gnn_infer_step(model: str, batch_size: int):
     @torch.inference_mode()
     def step(params, feats, src, dst, emask):
         blocks = [(s, d, m) for s, d, m in zip(src, dst, emask)]
-        h = gnn_forward(params, feats, blocks, model)
-        logits = h[:batch_size] @ params["head"]["w"] + params["head"]["b"]
+        h = gnn_forward(params, feats, blocks, model, n_out=batch_size)
+        logits = h @ params["head"]["w"] + params["head"]["b"]
         return logits.to(torch.float32)
     return step
 
 
 def gnn_loss(params, feats, blocks, labels, batch_size: int, model: str):
     """Mean cross-entropy of the seeds' float32 logits, and accuracy."""
-    h = gnn_forward(params, feats, blocks, model)
-    logits = h[:batch_size] @ params["head"]["w"] + params["head"]["b"]
+    h = gnn_forward(params, feats, blocks, model, n_out=batch_size)
+    logits = h @ params["head"]["w"] + params["head"]["b"]
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[:, None].long())[:, 0]
@@ -151,8 +161,11 @@ def make_gnn_train_step(model: str, optimizer, batch_size: int,
     also differentiates w.r.t. the INPUT features and returns dL/dfeats,
     ``(N_pad, F)``, as a third output — the trainer's write path applies
     it to the trainable embedding rows.  Only the seeds' logits enter the
-    loss, so the padding rows get zero gradients; every layer still runs
-    dense over all ``N_pad`` rows, as the reference's does."""
+    loss, so the padding rows get zero gradients.  The last layer's
+    products, forward and backward, run on the ``batch_size`` seed rows
+    alone (``gnn_forward``'s ``n_out``); the earlier layers, and every K2
+    and K3 call, still run over all ``N_pad`` rows, as the reference's
+    do."""
     def step(state, feats, src, dst, emask, labels):
         blocks = [(s, d, m) for s, d, m in zip(src, dst, emask)]
         params = state["params"]

@@ -17,8 +17,11 @@ from repro.gnn.sampling import NeighborSampler as RefSampler  # noqa: E402
 from repro_torch.gnn.graph import synth_graph  # noqa: E402
 from repro_torch.gnn.models import (gnn_forward,  # noqa: E402
                                     init_gnn_params as port_init,
-                                    make_gnn_infer_step, params_from_numpy)
+                                    make_gnn_infer_step, make_gnn_train_step,
+                                    params_from_numpy)
 from repro_torch.gnn.sampling import NeighborSampler  # noqa: E402
+from repro_torch.train.optim import adamw  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 N_V, ROW_DIM, HIDDEN, BATCH, FANOUTS = 2000, 32, 16, 16, (4, 3)
 
@@ -105,3 +108,67 @@ def test_port_init_layout(model):
         [(p, x.shape) for p, x in flat_got]
     w = got["layers"][0]["w_self" if model == "sage" else "w"]
     assert 0.5 < float(w.std()) * np.sqrt(ROW_DIM) < 1.5
+
+
+class _Products(TorchDispatchMode):
+    """Records every dense product, forward and backward, as ``(layer,
+    rows)``: the layer told apart by its weight's shape, the rows by the
+    one dimension that is no width.  A product reaches the mode as
+    ``aten.mm`` under autograd, as ``aten.matmul`` in inference mode."""
+
+    PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.matmul.default)
+
+    def __init__(self, weights: dict):
+        super().__init__()
+        self.weights, self.seen = weights, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in self.PRODUCTS:
+            shapes = {tuple(t.shape) for t in (args[0], args[1], out)}
+            layer, = {name for name, wshape in self.weights.items()
+                      if shapes & {wshape, wshape[::-1]}}
+            rows, = {d for t in args[:2] for d in t.shape
+                     if d not in {d for w in self.weights.values()
+                                  for d in w}}
+            self.seen.append((layer, rows))
+        return out
+
+
+@pytest.mark.parametrize("path", ["train", "infer", "forward"])
+@pytest.mark.parametrize("model", ["sage", "gcn"])
+def test_last_layer_products_run_on_the_rows_read(graphs, model, path):
+    """The train and infer steps read only the seeds' rows of the last
+    layer, so its products (forward and, in training, both gradients) run
+    on ``BATCH`` rows; the first layer's, and ``gnn_forward``'s without
+    ``n_out``, on all N_pad."""
+    hidden, n_classes = 24, 7            # every width apart from BATCH
+    weights = {"layer0": (ROW_DIM, hidden), "layer1": (hidden, hidden),
+               "head": (hidden, n_classes)}
+    params = port_init(torch.Generator().manual_seed(0), model, ROW_DIM,
+                       hidden, n_classes, device="cpu")
+    mb = _batches(graphs, 1)[0]
+    n_pad = len(mb.nodes)
+    feats = torch.randn(n_pad, ROW_DIM, generator=torch.Generator()
+                        .manual_seed(1))
+    src, dst, em = _port_blocks(mb)
+    with _Products(weights) as spy:
+        if path == "train":
+            opt = adamw(1e-2)
+            make_gnn_train_step(model, opt, BATCH)(
+                {"params": params, "opt": opt.init(params)}, feats, src,
+                dst, em, torch.from_numpy(mb.seeds % n_classes))
+        elif path == "infer":
+            make_gnn_infer_step(model, BATCH)(params, feats, src, dst, em)
+        else:
+            gnn_forward(params, feats, list(zip(src, dst, em)), model)
+    per_layer = {"sage": 2, "gcn": 1}[model]    # products a layer, forward
+    last = BATCH if path != "forward" else n_pad
+    # forward, then (training) the weights' and the inputs' gradients;
+    # the first layer's inputs (the gathered rows) take none
+    want = {"layer0": [n_pad] * per_layer * (2 if path == "train" else 1),
+            "layer1": [last] * per_layer * (3 if path == "train" else 1),
+            "head": [BATCH] * {"train": 3, "infer": 1, "forward": 0}[path]}
+    got = {name: sorted(r for n, r in spy.seen if n == name)
+           for name in weights}
+    assert got == want, spy.seen

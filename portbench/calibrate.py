@@ -60,23 +60,23 @@ def readings(cell: dict, seed: int, device: str) -> dict:
             su.row_seed, su.dev)
     finally:
         su.close()
-    p0 = reference.init_params(cfg["model"], seed, cfg["feature_dim"],
-                               cfg["hidden"], cfg["n_classes"])
-    lr = cfg["lr"]
-    want = reference.run_steps(p0, steps, cfg["model"], lr)
-    still = reference.run_steps(p0, steps, cfg["model"], 0.0)
+    model, margs, lr = cfg["model"], cfg.get("model_args", {}), cfg["lr"]
+    p0 = reference.init_params(model, seed, cfg["feature_dim"],
+                               cfg["hidden"], cfg["n_classes"], **margs)
+    want = reference.run_steps(p0, steps, model, lr, **margs)
+    still = reference.run_steps(p0, steps, model, 0.0, **margs)
     variants = {
         "program": harness.program_steps(records),
-        "control": reference.run_steps(p0, steps, cfg["model"], lr,
-                                       precision="tf32"),
-        "half_batch": reference.run_steps(p0, steps, cfg["model"], lr,
-                                          half_batch=True),
+        "control": reference.run_steps(p0, steps, model, lr,
+                                       precision="tf32", **margs),
+        "half_batch": reference.run_steps(p0, steps, model, lr,
+                                          half_batch=True, **margs),
         "unchanged": {"losses": still["losses"],
                       "grad1": {k: torch.zeros_like(v)
                                 for k, v in want["grad1"].items()},
                       "params": p0},
-        "float64": reference.run_steps(p0, steps, cfg["model"], lr,
-                                       precision="f64"),
+        "float64": reference.run_steps(p0, steps, model, lr,
+                                       precision="f64", **margs),
     }
     moving = reference.moving_leaves(want["grad1"])
     out = {"seed": seed, "sample_faults": faults, "row_faults": row_faults,

@@ -1,5 +1,6 @@
 """The yardstick: the card's peaks, each kernel's bytes and the model's
-operations, counted from a batch's real sizes and index sets.
+operations, counted from a batch's real sizes and index sets.  What is
+particular to a model is in ``models/<model>.py``.
 
 The peaks and the byte counts are copies of ``chip_smoke.py``'s, so that a
 later change to the program or to that script cannot move them:
@@ -20,6 +21,8 @@ later change to the program or to that script cannot move them:
 from __future__ import annotations
 
 import numpy as np
+
+from portbench import models
 
 HBM_BYTES_S = 3.35e12      # HBM3, 80 GB
 PCIE_BYTES_S = 64e9        # PCIe Gen5 x16, one direction
@@ -77,71 +80,46 @@ def batch_sizes(blocks, node_mask: np.ndarray, batch_size: int) -> dict:
 
 
 def model_flops(model: str, sizes: dict, d_in: int, hidden: int,
-                n_classes: int) -> float:
+                n_classes: int, **args) -> float:
     """Operations of one training step of the 2-layer model on one batch:
-    dense products over the rows whose output the loss needs, the
-    aggregation over the valid sampled edges, the head over the seeds; the
-    backward counted as twice the forward."""
-    b = sizes["batch"]
-    n1 = sizes["layer1_nodes"]
-    e_l1 = sizes["hops"][1]["e_valid"]        # layer 1 aggregates hop 2
-    e_l2 = sizes["hops"][0]["e_valid"]        # layer 2 aggregates hop 1
-    if model == "sage":
-        # self and neighbour products; a mean is one add an edge and entry
-        # and one divide a destination and entry
-        dense = 2 * (2 * n1 * d_in * hidden) + 2 * (2 * b * hidden * hidden)
-        agg = (e_l1 * d_in + sizes["hops"][1]["dst_valid_distinct"] * d_in
-               + e_l2 * hidden + sizes["hops"][0]["dst_valid_distinct"]
-               * hidden)
-    elif model == "gcn":
-        # one product a layer; a normalised sum is a multiply and an add
-        # an edge and entry
-        dense = 2 * n1 * d_in * hidden + 2 * b * hidden * hidden
-        agg = 2 * e_l1 * d_in + 2 * e_l2 * hidden
-    else:
-        raise ValueError(f"unknown model {model!r}")
-    head = 2 * b * hidden * n_classes
-    return 3.0 * (dense + agg + head)
+    its layers' forward (``models/<model>.py``'s ``flops``: dense products
+    over the rows whose output the loss needs, the aggregation over the
+    valid sampled edges), the head over the seeds; the backward counted as
+    twice the forward."""
+    layers = models.load(model).flops(sizes, d_in, hidden, n_classes, **args)
+    head = 2 * sizes["batch"] * hidden * n_classes
+    return 3.0 * (layers + head)
 
 
-def agg_calls(model: str, sizes: dict, d_in: int, hidden: int) -> list:
+def k2_call(hop: dict, width: int, at: str) -> tuple:
+    """A K2 launch over a hop's padded edges, ``width`` wide, that reads
+    the rows of the hop's distinct valid ``at`` vertices
+    (``"src_valid_distinct"`` or ``"dst_valid_distinct"``)."""
+    return ("k2", (hop["e_pad"], width),
+            k2_bytes(hop["e_valid"], width, hop[at]))
+
+
+def k3_call(hop: dict, width: int, n_out: int, at: str) -> tuple:
+    """A K3 launch of a hop's padded edges, ``width`` wide, into ``n_out``
+    rows, of which the valid edges reach the hop's distinct ``at``."""
+    return ("k3", (hop["e_pad"], width, n_out),
+            k3_bytes(hop["e_valid"], width, hop[at]))
+
+
+def gather_sum_backward(hop: dict, width: int, n_out: int) -> list:
+    """The backward of ``h[src]`` summed at ``dst``: the sum's backward
+    gathers at dst (K2), the gather's backward sums at src (K3)."""
+    return [k2_call(hop, width, "dst_valid_distinct"),
+            k3_call(hop, width, n_out, "src_valid_distinct")]
+
+
+def agg_calls(model: str, sizes: dict, d_in: int, hidden: int,
+              **args) -> list:
     """Every K2 and K3 launch of one training step, as ``(kernel, shape,
-    bytes)``: the forward of both layers, and the backward of layer 2
-    (layer 1's input, the gathered rows, takes no gradient).  ``shape`` is
-    the launch as the step makes it, over the padded edges (K2: indices
-    and width; K3: messages, width and output rows), which tells the
-    launches apart.  ``bytes`` is what the batch needs: its valid edges
-    alone, each distinct row they read once, and output rows only for the
-    distinct valid vertices that the launch sums into."""
-    n = sizes["n_pad"]
-    calls = []
-
-    def k2(hop, width, at):
-        calls.append(("k2", (hop["e_pad"], width),
-                      k2_bytes(hop["e_valid"], width, hop[at])))
-
-    def k3(hop, width, at):
-        calls.append(("k3", (hop["e_pad"], width, n),
-                      k3_bytes(hop["e_valid"], width, hop[at])))
-
-    src, dst = "src_valid_distinct", "dst_valid_distinct"
-    # layer 1 aggregates the outer hop (blocks[1]), layer 2 the inner one
-    for layer, (hop, width) in enumerate(((sizes["hops"][1], d_in),
-                                          (sizes["hops"][0], hidden))):
-        if model == "sage":
-            k2(hop, width, src)             # h[src]
-            k3(hop, width, dst)             # the sum at dst
-            k3(hop, 1, dst)                 # the count at dst
-        else:
-            k3(hop, 1, dst)                 # the degrees at dst and src
-            k3(hop, 1, src)
-            k2(hop, 1, src)                 # each edge's two degrees
-            k2(hop, 1, dst)
-            k2(hop, width, src)             # h[src]
-            k3(hop, width, dst)             # the normalised sum at dst
-        if layer == 1:
-            # the segment sum's backward gathers at dst (K2); the gather's
-            # backward sums at src (K3)
-            k2(hop, width, dst)
-            k3(hop, width, src)
-    return calls
+    bytes)`` (``models/<model>.py``'s ``agg_calls``).  ``shape`` is the
+    launch as the step makes it, over the padded edges (K2: indices and
+    width; K3: messages, width and output rows), which tells the launches
+    apart.  ``bytes`` is what the batch needs: its valid edges alone, each
+    distinct row they read once, and output rows only for the distinct
+    valid vertices that the launch sums into."""
+    return models.load(model).agg_calls(sizes, d_in, hidden, **args)

@@ -13,7 +13,9 @@ the device's work inside the window marked by ``WINDOW`` (a
   same host thread: the profiler records no CPU op of the trainer's worker
   threads, so the launches' order on each thread stands in for the
   wrappers' scopes);
-- ``top_ops``: device seconds by operation name, largest first;
+- ``by_kernel``: device seconds and launches of every device operation,
+  by ``short_name``, for a reader that finds its own kernel by name;
+- ``top_ops``: the largest of ``by_kernel``'s seconds, largest first;
 - ``gaps``: the longest idle intervals on the device, each labelled with
   the pipeline operators (``pipe.*`` spans) open on the host at its middle.
 """
@@ -104,7 +106,7 @@ def reduce_events(events, host_spans: list, n_top: int = 10) -> dict:
         return {}
     w0, w1 = window
     fills = _k3_fills(dev, launches)
-    busy, by_class, by_name = [], {}, {}
+    busy, by_class, by_kernel = [], {}, {}
     for name, a, b, corr in dev:
         a, b = max(a, w0), min(b, w1)
         if b <= a:
@@ -116,8 +118,9 @@ def reduce_events(events, host_spans: list, n_top: int = 10) -> dict:
             c = by_class.setdefault(cls, {"s": 0.0, "launches": 0})
             c["s"] += s
             c["launches"] += 1
-        key = short_name(name)
-        by_name[key] = by_name.get(key, 0.0) + s
+        k = by_kernel.setdefault(short_name(name), {"s": 0.0, "launches": 0})
+        k["s"] += s
+        k["launches"] += 1
     merged = _union(busy)
     gaps, t = [], w0
     for a, b in merged:
@@ -133,10 +136,11 @@ def reduce_events(events, host_spans: list, n_top: int = 10) -> dict:
         open_ops = sorted({n.removeprefix("pipe.") for n, s0, s1 in host_spans
                            if s0 <= mid <= s1})
         labelled.append(["+".join(open_ops) or "none", (b - a) * 1e-9])
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1]["s"])[:n_top]
     return {"window_s": (w1 - w0) * 1e-9,
             "busy_s": sum(b - a for a, b in merged) * 1e-9,
             "by_class": by_class,
-            "top_ops": [[k, v] for k, v in top],
+            "by_kernel": by_kernel,
+            "top_ops": [[k, v["s"]] for k, v in top],
             "gaps": labelled,
             "n_device_events": len(busy)}

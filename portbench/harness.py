@@ -4,15 +4,16 @@ the check against the plain reference.
 
 A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``,
 its file as the ``configs`` entry gives it) and a traffic mix
-(``traffic/<name>.json``); its limits are in ``limits/<cell>.json`` and
-each per-layer metric is read by ``metrics/<metric>.py``.  Nothing here
-knows a cell, a configuration or a metric by name.
+(``traffic/<name>.json``); its limits are in ``limits/<cell>.json``, each
+per-layer metric is read by ``metrics/<metric>.py``, and the
+configuration's ``"model"`` is checked and counted by ``models/<model>.py``
+with the configuration's ``"model_args"``.  Nothing here knows a cell, a
+configuration, a model or a metric by name.
 """
 from __future__ import annotations
 
 import gc
 import hashlib
-import importlib.util
 import json
 import os
 import shutil
@@ -23,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import counts, data, devtrace, reference
+from portbench import counts, data, devtrace, load_file, reference
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -68,13 +69,21 @@ def load_cell(name: str, bench: dict | None = None) -> dict:
 
 def load_reader(metric: str):
     """The ``read(record)`` function of ``metrics/<metric>.py``."""
-    path = os.path.join(HERE, "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + metric.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file(os.path.join(HERE, "metrics", f"{metric}.py")).read
+
+
+def trainer_settings(cell: dict) -> dict:
+    """The traffic's ``trainer`` settings (mode, tiers, placement,
+    pipeline depth) and the configuration's model settings, as they go to
+    ``TrainerConfig``; a key that both set is an error."""
+    tr = cell["traffic"]["trainer"]
+    margs = cell["config"].get("model_args", {})
+    both = sorted(set(tr) & set(margs))
+    if both:
+        raise ValueError(f"{cell['name']}: {both} set by both the traffic's "
+                         "trainer settings and the configuration's "
+                         "model_args")
+    return {**tr, **margs}
 
 
 def jax_modules() -> list:
@@ -169,7 +178,7 @@ class Setup:
         from repro_torch.gnn.train import OutOfCoreGNNTrainer, TrainerConfig
 
         log = log or (lambda msg: None)
-        cfg, tr = cell["config"], cell["traffic"]
+        cfg, settings = cell["config"], trainer_settings(cell)
         self.cell, self.seed, self.dev = cell, seed, torch.device(device)
         n, dim = cfg["n_vertices"], cfg["feature_dim"]
         self.trainer = None
@@ -194,13 +203,11 @@ class Setup:
                              n_classes=cfg["n_classes"])
             store = FeatureStore(self.store_dir, n, dim, dtype=np.float32,
                                  n_shards=cfg["n_shards"])
-            # the traffic's ``trainer`` settings (mode, tiers, placement,
-            # pipeline depth) go to the trainer as they are
             tcfg = TrainerConfig(
                 model=cfg["model"], hidden=cfg["hidden"],
                 batch_size=cfg["batch_size"], fanouts=tuple(cfg["fanouts"]),
                 lr=cfg["lr"], chaos=None, seed=seed, device=device,
-                **tr["trainer"])
+                **settings)
             self.trainer = OutOfCoreGNNTrainer(graph, store, tcfg)
             log(f"trainer {time.perf_counter() - t:.2f} s")
         except BaseException:
@@ -316,7 +323,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         if trace:
             t = time.perf_counter()
             rec = {
-                "model": cfg["model"], "feature_dim": cfg["feature_dim"],
+                "model": cfg["model"],
+                "model_args": cfg.get("model_args", {}),
+                "feature_dim": cfg["feature_dim"],
                 "hidden": cfg["hidden"], "n_classes": cfg["n_classes"],
                 "row_bytes": cfg["feature_dim"] * 4, "n_batches": n_batches,
                 "batch_size": bsz, "window_s": window_s,
@@ -445,9 +454,11 @@ def check(cell: dict, seed: int, records: list, warm: list, rowptr, col,
         cell, seed, records, warm, rowptr, col, graph_digest, row_seed, dev)
     out = {"sample_faults": faults, "row_faults": row_faults}
     if len(steps) == len(records) == CHECK_STEPS:
+        margs = cfg.get("model_args", {})
         p0 = reference.init_params(cfg["model"], seed, cfg["feature_dim"],
-                                   cfg["hidden"], cfg["n_classes"])
-        want = reference.run_steps(p0, steps, cfg["model"], cfg["lr"])
+                                   cfg["hidden"], cfg["n_classes"], **margs)
+        want = reference.run_steps(p0, steps, cfg["model"], cfg["lr"],
+                                   **margs)
         out.update(reference.numbers(program_steps(records), want, p0))
     # the cell's limits name the numbers compared
     return {k: {"value": out.get(k, float("inf")), "limit": lim[k]}

@@ -13,9 +13,10 @@ def read(rec):
     main = by.get("agg")
     if not main or not rec["batches"]:
         return None
+    args = rec.get("model_args", {})
     calls = [c for s in rec["batches"]
              for c in counts.agg_calls(rec["model"], s, rec["feature_dim"],
-                                       rec["hidden"])]
+                                       rec["hidden"], **args)]
     if main["launches"] != len(calls):
         return None
     secs = main["s"] + by.get("k3_fill", {}).get("s", 0.0)

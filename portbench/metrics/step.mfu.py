@@ -8,7 +8,8 @@ from portbench import counts
 def read(rec):
     if not rec["batches"] or not rec["device"]:
         return None
+    args = rec.get("model_args", {})
     ops = sum(counts.model_flops(rec["model"], s, rec["feature_dim"],
-                                 rec["hidden"], rec["n_classes"])
+                                 rec["hidden"], rec["n_classes"], **args)
               for s in rec["batches"])
     return 100.0 * ops / (rec["window_s"] * counts.F32_OPS_S)

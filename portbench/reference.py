@@ -29,30 +29,29 @@ import math
 import numpy as np
 import torch
 
+from portbench import models
+
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_WD, MAX_GRAD_NORM = 0.9, 0.95, 1e-8, 0.1, 1.0
 
 
 # ------------------------------------------------------------------ params
 def init_params(model: str, seed: int, in_dim: int, hidden: int,
-                n_classes: int, n_layers: int = 2) -> dict:
+                n_classes: int, n_layers: int = 2, **args) -> dict:
     """The initial parameters, named leaf by leaf: N(0, 1/fan_in) weights
     ``(d_in, d_out)`` drawn in order from a CPU generator seeded with the
-    trainer's seed, zero biases."""
+    trainer's seed, each layer's leaves as ``models/<model>.py`` gives
+    them, zero biases."""
     gen = torch.Generator().manual_seed(seed)
 
     def dense(d_in, d_out):
         w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32)
         return w / math.sqrt(max(d_in, 1))
 
+    mod = models.load(model)
     out = {}
     for i in range(n_layers):
-        d_in = in_dim if i == 0 else hidden
-        if model == "sage":
-            out[f"layers.{i}.w_self"] = dense(d_in, hidden)
-            out[f"layers.{i}.w_neigh"] = dense(d_in, hidden)
-        else:
-            out[f"layers.{i}.w"] = dense(d_in, hidden)
-        out[f"layers.{i}.b"] = torch.zeros(hidden)
+        out.update(mod.init_layer(dense, i, in_dim if i == 0 else hidden,
+                                  hidden, **args))
     out["head.w"] = dense(hidden, n_classes)
     out["head.b"] = torch.zeros(n_classes)
     return out
@@ -103,34 +102,19 @@ def _mm(a, b, precision):
 
 def forward_loss(p: dict, x: torch.Tensor, blocks, labels: torch.Tensor,
                  model: str, precision: str = "f32",
-                 half_batch: bool = False) -> torch.Tensor:
+                 half_batch: bool = False, **args) -> torch.Tensor:
     """Mean cross-entropy of the seeds.  ``x``: (n, F) rows of the batch's
     nodes; ``blocks``: outer hop first, ``(src, dst)`` int64 positions of
-    the VALID edges only; the seeds are positions ``0..len(labels)-1``."""
-    n = x.shape[0]
+    the VALID edges only; the seeds are positions ``0..len(labels)-1``.
+    Each layer is ``models/<model>.py``'s."""
+    mod = models.load(model)
+
+    def mm(a, b):
+        return _mm(a, b, precision)
+
     h = x
     for i, (src, dst) in enumerate(reversed(blocks)):
-        ones = torch.ones(len(src), dtype=h.dtype, device=h.device)
-        if model == "sage":
-            s = torch.zeros((n, h.shape[1]), dtype=h.dtype,
-                            device=h.device).index_add(0, dst, h[src])
-            cnt = torch.zeros(n, dtype=h.dtype,
-                              device=h.device).index_add(0, dst, ones)
-            nb = s / torch.clamp(cnt, min=1.0)[:, None]
-            h = (_mm(h, p[f"layers.{i}.w_self"], precision)
-                 + _mm(nb, p[f"layers.{i}.w_neigh"], precision)
-                 + p[f"layers.{i}.b"])
-        else:
-            zeros = torch.zeros(n, dtype=h.dtype, device=h.device)
-            deg_dst = zeros.index_add(0, dst, ones)
-            deg_src = zeros.index_add(0, src, ones)
-            norm = (torch.rsqrt(torch.clamp(deg_src[src], min=1.0))
-                    * torch.rsqrt(torch.clamp(deg_dst[dst], min=1.0)))
-            nb = torch.zeros((n, h.shape[1]), dtype=h.dtype,
-                             device=h.device).index_add(
-                0, dst, h[src] * norm[:, None])
-            h = _mm(nb, p[f"layers.{i}.w"], precision) + p[f"layers.{i}.b"]
-        h = torch.relu(h)
+        h = mod.layer(p, i, h, src, dst, x.shape[0], mm, **args)
     b = len(labels)
     if half_batch:
         b //= 2
@@ -158,7 +142,8 @@ def adamw_step(p: dict, g: dict, m: dict, v: dict, t: int, lr: float):
 
 
 def run_steps(p0: dict, steps: list, model: str, lr: float,
-              precision: str = "f32", half_batch: bool = False) -> dict:
+              precision: str = "f32", half_batch: bool = False,
+              **args) -> dict:
     """The reference's first steps from ``p0``.  ``steps``: one dict a
     step with ``x`` (rows), ``blocks`` (valid edges) and ``labels``, all on
     one device.  Returns the losses, the clipped first gradient and the
@@ -176,7 +161,7 @@ def run_steps(p0: dict, steps: list, model: str, lr: float,
             with torch.enable_grad():
                 loss = forward_loss(leaves, st["x"].to(dt), st["blocks"],
                                     st["labels"], model, precision,
-                                    half_batch)
+                                    half_batch, **args)
                 grads = torch.autograd.grad(loss, list(leaves.values()))
             g = {k: gr.detach() for k, gr in zip(leaves, grads)}
             adamw_step(p, g, m, v, t, lr)

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 from portbench import counts
+from portbench.conftest import CELLS
 
 # a batch of 2 seeds, fanouts (2, 1): 5 real nodes of 8 padded positions
 BLOCKS = [(np.array([2, 3, 3, 4]), np.array([0, 0, 1, 1]),
@@ -66,7 +67,7 @@ def test_agg_calls_count_needed_bytes_by_hand():
     assert calls[1][1] == (4, 4, 8)
 
 
-@pytest.mark.parametrize("name", ["sage-ig.ooc", "gcn-pa.inmem"])
+@pytest.mark.parametrize("name", CELLS)
 def test_agg_calls_are_the_steps_calls(name, tiny_cell, monkeypatch):
     """Every K2 and K3 call of one training step on the CPU, with the
     shape it is launched at, is one of ``counts.agg_calls``."""
@@ -74,6 +75,7 @@ def test_agg_calls_are_the_steps_calls(name, tiny_cell, monkeypatch):
     from repro_torch.kernels.segment_agg import ops as s_ops
 
     from portbench import harness
+    cell = tiny_cell(name)
     seen = []
     gather, ssum = g_ops._gather, s_ops._segment_sum
 
@@ -85,7 +87,6 @@ def test_agg_calls_are_the_steps_calls(name, tiny_cell, monkeypatch):
         seen.append(("k3", (msgs.shape[0], msgs.shape[1], n_seg)))
         return ssum(msgs, ids, n_seg, backward)
 
-    cell = tiny_cell(name)
     su = harness.Setup(cell, 5, "cpu")
     try:
         monkeypatch.setattr(g_ops, "_gather", rec_gather)
@@ -99,5 +100,25 @@ def test_agg_calls_are_the_steps_calls(name, tiny_cell, monkeypatch):
         [(b.src_pos, b.dst_pos, b.edge_mask) for b in mb.blocks],
         mb.node_mask, cfg["batch_size"])
     want = counts.agg_calls(cfg["model"], sizes, cfg["feature_dim"],
-                            cfg["hidden"])
+                            cfg["hidden"], **cfg.get("model_args", {}))
     assert sorted(seen) == sorted((k, shape) for k, shape, _ in want)
+
+
+def test_gcn_agg_calls_count_needed_bytes_by_hand():
+    # gcn, d_in 4, hidden 3.  Layer 1 over hop 2 (3 valid edges, 3
+    # distinct sources, 3 distinct destinations): the degrees at dst and
+    # at src, 12 + 12 + 12 each; each edge's two degrees gathered, 3 * (4
+    # + 4) + 3 * 4 each; the gather 3 * (4 + 16) + 3 * 16 and the sum 48 +
+    # 12 + 48.  Layer 2 over hop 1 (4 edges, 3 sources, 2 destinations):
+    # the degrees 16 + 16 + 8 (dst) and 16 + 16 + 12 (src); their gathers
+    # 4 * 8 + 3 * 4 (src) and 4 * 8 + 2 * 4 (dst); the gather 4 * (4 +
+    # 12) + 3 * 12, the sum 48 + 16 + 2 * 12; its backward gathers at the
+    # 2 destinations, 64 + 24, and sums into the 3 sources, 48 + 16 + 36.
+    s = counts.batch_sizes(BLOCKS, MASK, 2)
+    calls = counts.agg_calls("gcn", s, 4, 3)
+    assert [b for _, _, b in calls] == [36, 36, 36, 36, 108, 108,
+                                        40, 44, 44, 40, 100, 88, 88, 100]
+    assert [k for k, _, _ in calls] == ["k3", "k3", "k2", "k2", "k2", "k3",
+                                        "k3", "k3", "k2", "k2", "k2", "k3",
+                                        "k2", "k3"]
+    assert [shape for _, shape, _ in calls][:2] == [(4, 1, 8), (4, 1, 8)]
